@@ -1,0 +1,77 @@
+"""Build and load the package's CUDA kernels (``csrc/*.cu``) with ``nvcc``.
+
+Each source becomes a shared library with a plain C interface, bound with
+``ctypes`` (no PyTorch headers, so a build takes seconds). Libraries are built
+on first use into ``clima_tpu_torch/_build/`` (not tracked by git), named by
+a hash of the source and flags, and reused by later processes of the same
+checkout. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+__all__ = ["load_library", "BUILD_INFO"]
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CSRC = os.path.join(_PKG, "csrc")
+_BUILD = os.path.join(_PKG, "_build")
+_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+          "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_LOCK = threading.Lock()
+_LIBS = {}
+# name -> {"seconds": build time (0.0 when reused), "log": nvcc's output}
+BUILD_INFO = {}
+
+_P, _I, _LL, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
+_SIGNATURES = {
+    "twostream": ("clima_twostream_weighted",
+                  [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _LL, _I, _I, _D,
+                   _P, _P, _P, _P, _P]),
+    "rorr": ("clima_rorr_chain", [_I, _I, _I, _LL, _P, _P, _P, _P, _P]),
+}
+
+
+def _nvcc():
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    found = shutil.which("nvcc") or os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return found
+
+
+def load_library(name):
+    """The ctypes function of kernel library ``name`` ("twostream" or "rorr"),
+    building ``csrc/<name>.cu`` first if needed."""
+    with _LOCK:
+        if name in _LIBS:
+            return _LIBS[name]
+        src = os.path.join(_CSRC, name + ".cu")
+        with open(src, "rb") as f:
+            digest = hashlib.sha256(f.read() + " ".join(_FLAGS).encode()).hexdigest()[:16]
+        out = os.path.join(_BUILD, f"lib{name}-{digest}.so")
+        t0 = time.perf_counter()
+        log = ""
+        if not os.path.exists(out):
+            os.makedirs(_BUILD, exist_ok=True)
+            tmp = f"{out}.{os.getpid()}.tmp"
+            res = subprocess.run([_nvcc(), *_FLAGS, "-o", tmp, src],
+                                 capture_output=True, text=True)
+            log = res.stdout + res.stderr
+            if res.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src}:\n{log}")
+            os.replace(tmp, out)
+        BUILD_INFO[name] = {"seconds": time.perf_counter() - t0, "log": log}
+        fname, argtypes = _SIGNATURES[name]
+        fn = getattr(ctypes.CDLL(out), fname)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _LIBS[name] = fn
+        return fn

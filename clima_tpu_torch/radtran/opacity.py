@@ -1,0 +1,217 @@
+"""Opacity assembly: k-tables + continua + particles -> (tau, w0, g) per bin.
+
+Re-implements ``OpticalProperties_compute_opacity`` and ``k_rorr``
+(``src/radtran/clima_radtran_types.f90:574-888``) for a batch of columns: the
+reference's loop over wavelength bins and its per-layer interpolation loops
+become whole-tensor contractions over (columns x bins x gauss x layers).
+
+Input convention matches the reference facade with a leading column axis:
+ground-up layer arrays (index 0 = bottom). Output arrays are TOA-down
+(index 0 = top), as the reference's result arrays are.
+"""
+
+from __future__ import annotations
+
+import warnings
+
+import torch
+
+from .. import constants as const
+from ..ops.interp import hat_weights, pdot
+from ..ops.rorr import k_aee_mix, k_rorr_mix
+from ..ops.rorr_cuda import k_rorr_mix_cuda
+from .data import OpticalData
+
+__all__ = ["compute_opacity"]
+
+
+def _tiny(dtype):
+    return 1e-300 if dtype == torch.float64 else 1e-37
+
+
+def _safe_log10(x):
+    return torch.log10(torch.clamp(x, min=_tiny(x.dtype)))
+
+
+def _interp_table_T_log10(temp_grid, table, T):
+    """Interpolate log10-xsection rows at temperatures T (B, nz) with clamping.
+
+    Returns log10 values (B, nz, nw). Matches interpolate_Xsection
+    (types.f90:890-917): T clamped to the grid range, linear in log10 space.
+    Kept in log10 for float32 safety: CIA/continuum terms combine xs ~ 1e-46
+    with density products ~ 1e38, both outside float32 range individually.
+    """
+    return pdot(hat_weights(temp_grid, T), table)
+
+
+def _interp_ktable(kt, log10P, T):
+    """Bilinear k-table interpolation -> k (G, W, B, nz), linear units.
+
+    Matches the clamped 2-D interpolation at types.f90:649-662 as a
+    hat-basis contraction: one (G*W, P*T) @ (P*T, B*nz) matmul, whose output
+    is already the RORR kernel's (gauss, lanes) layout.
+    """
+    Wp = hat_weights(kt.log10P, log10P)  # (B, nz, P)
+    Wt = hat_weights(kt.temp, T)  # (B, nz, T)
+    B, nz, P = Wp.shape
+    Tn = Wt.shape[-1]
+    WptT = (Wp.permute(2, 0, 1)[:, None] * Wt.permute(2, 0, 1)[None]).reshape(P * Tn, B * nz)
+    G, _, _, Wn = kt.log10k.shape
+    tabT = kt.log10k.permute(0, 3, 1, 2).reshape(G * Wn, P * Tn)
+    return 10.0 ** pdot(tabT, WptT).reshape(G, Wn, B, nz)
+
+
+def _interp_particle(part, radii_z):
+    """Particle optical data at radii (B, nz) -> (w0, qext, gt), each (B, nz, nw).
+
+    Radii outside the table are clamped (interpolate_Particle, :947-983).
+    """
+    W = hat_weights(part.radii, radii_z)
+    return pdot(W, part.w0), pdot(W, part.qext), pdot(W, part.gt)
+
+
+def _rorr_mix(tau_ks_t, wbin, wbin_e):
+    """RORR mix of the species chain (nk, nbin, R) -> (nbin, R).
+
+    nbin <= 16 goes through the rank kernel (:func:`k_rorr_mix_cuda`, its
+    plain twin for CPU tensors). Past nbin=16 the rank form's O(nbin^4) cost
+    per species pair loses to the sort path (measured on the TPU by the JAX
+    package, PARITY.md), which runs here on the CPU, with a warning; the port
+    has no sort kernel for the card yet, so CUDA tensors raise.
+    """
+    nk, nbin, _ = tau_ks_t.shape
+    if nk == 1:
+        return tau_ks_t[0]
+    if nbin <= 16:
+        return k_rorr_mix_cuda(tau_ks_t, wbin, wbin_e)
+    if tau_ks_t.device.type != "cpu":
+        raise NotImplementedError(
+            f"RORR with nbin={nbin} > 16 on {tau_ks_t.device}: the rank kernel takes "
+            "nbin <= 16 and the sort-based path has no kernel for this device yet")
+    warnings.warn(
+        f"RORR with nbin={nbin} > 16: using the sort-based k-mixing path, not the "
+        "rank kernel (O(nbin^4) per pair and slower past nbin=16; see PARITY.md).",
+        stacklevel=3,
+    )
+    return k_rorr_mix(tau_ks_t.movedim(1, -1), wbin_e).movedim(-1, 0)
+
+
+def compute_opacity(op: OpticalData, P, T, densities, dz, pdensities=None, radii=None,
+                    custom=None):
+    """Assemble total optical properties for a batch of columns.
+
+    Parameters (ground-up, layer index 0 = bottom, leading column axis B):
+      P: (B, nz) bars;  T: (B, nz);  densities: (B, nz, ng) molecules/cm^3;
+      dz: (B, nz) cm;  pdensities/radii: (B, nz, np);  custom: optional dict
+      with keys log10P (nPc, ascending, log10 dynes/cm^2), dtau_dz/w0/g0
+      (nPc, nw).
+    ``op`` holds tables on the inputs' device and dtype.
+
+    Returns dict with TOA-down arrays:
+      tau (B, nw, nbin, nz), w0 (B, nw, nbin, nz), g (B, nw, nz),
+      tau_band (B, nw, nz).
+    """
+    B, nz = T.shape
+    nw = op.nw
+    nbin = op.kset.nbin
+    dtype = T.dtype
+    # TOA-down from the start: flip the small (B, nz)-indexed inputs once
+    flip = lambda x: torch.flip(x, dims=[1])
+    P, T, densities, dz = flip(P), flip(T), flip(densities), flip(dz)
+    if pdensities is not None:
+        pdensities = flip(pdensities)
+    if radii is not None:
+        radii = flip(radii)
+    log10P = torch.log10(P)
+    cols = densities * dz[..., None]  # (B, nz, ng)
+
+    # --- k-distributions: per-species tau at each gauss point, (G, W, B, nz) ---
+    nk = len(op.k)
+    tau_ks = torch.stack(
+        [_interp_ktable(kt, log10P, T) * cols[:, :, kt.sp_ind] for kt in op.k], dim=0
+    )  # (nk, G, W, B, nz)
+
+    # --- k-distribution mixing -> tau_kmix (G, W, B, nz) ---
+    if op.kset.k_method == "AdaptiveEquivalentExtinction":
+        # declared-but-unimplemented in the reference (types.f90:761-763)
+        tau_kmix = k_aee_mix(tau_ks.movedim(1, -1), op.kset.wbin).movedim(-1, 0)
+    else:
+        # RORR (k_rorr, types.f90:780-888)
+        mixed = _rorr_mix(tau_ks.reshape(nk, nbin, -1), op.kset.wbin, op.kset.wbin_e)
+        tau_kmix = mixed.reshape(nbin, nw, B, nz)
+
+    zeros = torch.zeros((B, nz, nw), dtype=dtype, device=T.device)
+
+    # --- Rayleigh scattering ---
+    tausg = zeros
+    for xs in op.ray:
+        tausg = tausg + xs.xs_0d * cols[:, :, xs.sp_inds[0], None]
+
+    # --- continuum absorption: CIA + photolysis + water continuum ---
+    # binary terms (xsection * density * density * dz) are accumulated in
+    # log10 space: the factors individually over/underflow float32.
+    taua = zeros
+    for xs in op.cia:
+        j, jj = xs.sp_inds
+        if xs.dim == 0:
+            lgval = _safe_log10(xs.xs_0d)
+        else:
+            lgval = _interp_table_T_log10(xs.temp, xs.log10_xs, T)
+        lgcol = _safe_log10(densities[:, :, j]) + _safe_log10(densities[:, :, jj]) + torch.log10(dz)
+        taua = taua + 10.0 ** (lgval + lgcol[..., None])
+
+    for xs in op.pxs + op.axs:
+        j = xs.sp_inds[0]
+        if xs.dim == 0:
+            val = xs.xs_0d
+        else:
+            val = 10.0 ** _interp_table_T_log10(xs.temp, xs.log10_xs, T)
+        taua = taua + val * cols[:, :, j, None]
+
+    if op.cont is not None:
+        LH2O = op.cont.LH2O
+        lg_h2o = _interp_table_T_log10(op.cont.temp, op.cont.log10_xs_H2O, T)
+        lg_for = _interp_table_T_log10(op.cont.temp, op.cont.log10_xs_foreign, T)
+        foreign_col = torch.sum(cols, dim=-1) - cols[:, :, LH2O]
+        lg_n_h2o = _safe_log10(densities[:, :, LH2O])
+        taua = taua + 10.0 ** (lg_h2o + (lg_n_h2o + _safe_log10(cols[:, :, LH2O]))[..., None])
+        taua = taua + 10.0 ** (lg_for + (lg_n_h2o + _safe_log10(foreign_col))[..., None])
+
+    # --- custom optical properties (types.f90:429-572) ---
+    if custom is not None:
+        W = hat_weights(custom["log10P"], torch.log10(P * 1.0e6))
+        tauc = pdot(W, custom["dtau_dz"]) * dz[..., None]
+        w0c = pdot(W, custom["w0"])
+        g0c = pdot(W, custom["g0"])
+    else:
+        tauc = w0c = g0c = torch.full((B, nz, nw), _tiny(dtype), dtype=dtype, device=T.device)
+    tausc = w0c * tauc
+
+    # --- particles ---
+    taup = tausp = gt_num = zeros
+    if op.part and pdensities is not None:
+        for part in op.part:
+            j = part.p_ind
+            w0p, qextp, gtp = _interp_particle(part, radii[:, :, j])
+            taup_1 = qextp * const.pi * (radii[:, :, j] ** 2 * pdensities[:, :, j] * dz)[..., None]
+            tausp_1 = w0p * taup_1
+            taup = taup + taup_1
+            tausp = tausp + tausp_1
+            gt_num = gt_num + gtp * tausp_1
+
+    scat_tot = torch.clamp(tausp + tausg + tausc, min=const.tau_min)
+    gt = gt_num / scat_tot + g0c * tausc / scat_tot
+    gt = torch.clamp(gt, max=const.max_gt)
+
+    # --- combine per gauss point: (B, W, G, nz) ---
+    tau_cont = (tausg + taua + taup + tauc).transpose(1, 2)  # (B, W, nz)
+    tausum = (tausg + tausp + tausc).transpose(1, 2)  # (B, W, nz) scattering part
+    tau = (tau_cont[:, :, None, :] + tau_kmix.permute(2, 1, 0, 3)).contiguous()
+    w0 = torch.where(
+        tau <= const.tau_min,
+        torch.zeros((), dtype=dtype, device=T.device),
+        torch.clamp(tausum[:, :, None, :] / tau, max=const.max_w0),
+    )
+    tau_band = torch.sum(tau * op.kset.wbin[:, None], dim=2)  # (B, W, nz)
+
+    return dict(tau=tau, w0=w0, g=gt.transpose(1, 2), tau_band=tau_band)

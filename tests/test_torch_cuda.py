@@ -1,0 +1,84 @@
+"""The port's CUDA kernels against their plain twins on the card (float64,
+small shapes). Skipped where no CUDA device is present; on a GPU machine:
+``python -m pytest --noconftest tests/test_torch_cuda.py -m cuda`` (the
+suite's conftest configures JAX, which a GPU machine need not have)."""
+
+import numpy as np
+import pytest
+import torch
+
+from clima_tpu_torch.ops import rorr, rorr_cuda, twostream, twostream_cuda
+from clima_tpu_torch.radtran.opacity import _rorr_mix
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture()
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _atm(B, nz, dev, seed):
+    rng = np.random.default_rng(seed)
+    t = lambda x: torch.tensor(x, device=dev)
+    tau = rng.uniform(1e-6, 2.0, (B, nz))
+    tau[2, 5] = 1e-7
+    return t(tau), t(rng.uniform(0.02, 0.999, (B, nz))), t(rng.uniform(0.0, 0.85, (B, nz)))
+
+
+def _close(got, want):
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+            continue
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.parametrize("hard", [True, False])
+def test_ir_weighted_kernel_matches_twin(dev, hard):
+    nw, nG, nz = 5, 8, 21
+    tau, w0, gt = _atm(nw * nG, nz, dev, 7)
+    rng = np.random.default_rng(8)
+    t = lambda x: torch.tensor(x, device=dev)
+    args = (tau, w0, gt, t(rng.uniform(0.8, 1.0, nw * nG)), hard, 1e-6,
+            t(rng.uniform(1e-2, 1.0, (nw * nG, nz + 1))),
+            t(np.polynomial.legendre.leggauss(nG)[1] / 2.0))
+    n = twostream_cuda.two_stream_ir_weighted_cuda.launches
+    _close(twostream_cuda.two_stream_ir_weighted_cuda(*args), twostream.two_stream_ir_weighted(*args))
+    assert twostream_cuda.two_stream_ir_weighted_cuda.launches == n + 1
+
+
+@pytest.mark.parametrize("nzen", [3, 6])
+@pytest.mark.parametrize("with_amean", [True, False])
+def test_solar_multi_weighted_kernel_matches_twin(dev, with_amean, nzen):
+    nw, nG, nz = 7, 4, 33
+    tau, w0, gt = _atm(nw * nG, nz, dev, 5)
+    rng = np.random.default_rng(6)
+    t = lambda x: torch.tensor(x, device=dev)
+    args = (tau, w0, gt, t(rng.uniform(0.2, 1.0, nzen)), t(rng.uniform(0.0, 0.6, nw * nG)),
+            t(rng.uniform(0.1, 0.5, nzen)), t(np.polynomial.legendre.leggauss(nG)[1] / 2.0))
+    _close(twostream_cuda.two_stream_solar_multi_weighted_cuda(*args, with_amean=with_amean),
+           twostream.two_stream_solar_multi_weighted(*args, with_amean=with_amean))
+
+
+@pytest.mark.parametrize("nbin", [3, 8, 12, 16])
+def test_rorr_kernel_matches_twin(dev, nbin):
+    rng = np.random.default_rng(5)
+    t = lambda x: torch.tensor(x, device=dev)
+    tks = t(10 ** rng.uniform(-6, 1, (3, nbin, 777)))
+    w = rng.uniform(0.5, 1.5, nbin)
+    wbin = w / w.sum()
+    wbin_e = t(np.concatenate([[0.0], np.cumsum(wbin)]))
+    got = rorr_cuda.k_rorr_mix_cuda(tks, t(wbin), wbin_e)
+    want = rorr.k_rorr_mix(tks.movedim(1, -1), wbin_e).movedim(-1, 0)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-9)
+
+
+def test_rorr_past_nbin_16_raises_on_the_card(dev):
+    tks = torch.ones((3, 20, 5), dtype=torch.float64, device=dev)
+    wbin = torch.full((20,), 0.05, dtype=torch.float64, device=dev)
+    with pytest.raises(NotImplementedError):
+        _rorr_mix(tks, wbin, torch.cat([wbin.new_zeros(1), torch.cumsum(wbin, 0)]))

@@ -1,0 +1,45 @@
+"""The PyTorch port never imports JAX."""
+
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+MODULES = [
+    "clima_tpu_torch",
+    "clima_tpu_torch.constants",
+    "clima_tpu_torch.config",
+    "clima_tpu_torch.physics.eqns",
+    "clima_tpu_torch.data.synthetic",
+    "clima_tpu_torch.ops.rebin",
+    "clima_tpu_torch.ops.interp",
+    "clima_tpu_torch.ops.tridiag",
+    "clima_tpu_torch.ops.twostream",
+    "clima_tpu_torch.ops.twostream_cuda",
+    "clima_tpu_torch.ops.rorr",
+    "clima_tpu_torch.ops.rorr_cuda",
+    "clima_tpu_torch.ops.cuda_build",
+    "clima_tpu_torch.radtran.data",
+    "clima_tpu_torch.radtran.opacity",
+    "clima_tpu_torch.radtran.radiate",
+    "clima_tpu_torch.radtran.radtran",
+]
+
+
+def test_port_imports_without_jax():
+    """Every module on the slice imports with JAX made unimportable, and no
+    JAX module is loaded afterwards."""
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['jax'] = None\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "loaded = [m for m in sys.modules if m.startswith(('jax.', 'jaxlib'))]\n"
+        "assert sys.modules['jax'] is None and not loaded, loaded\n"
+        "print('ok')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
