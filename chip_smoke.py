@@ -6,31 +6,58 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
 
 1. environment: torch / CUDA versions and the card's name and power limit;
    fails without a CUDA device (there is no CPU path);
-2. build: the CUDA kernels from clima_tpu_torch/csrc/, with build seconds;
-3. each kernel against its plain PyTorch twin on the card, float64, at the
-   flagship shapes (IR two-stream with hard and soft surface and a thin
-   layer; solar two-stream with 4 zenith angles, with and without amean;
-   RORR with 3 species at nbin 8 and 16), at smaller shapes the solar
-   kernel's 5-8 zenith build (6 angles) and RORR at a run-time nbin (12),
-   plus the float32 near-tie RORR chain; kernel and twin times;
-4. the main path: the synthetic nz=100, 4-zenith template built in memory,
-   ``Radtran`` constructed on the card and run on one column, then the
-   B=256 columns x K=8 bench-shaped batch (nz_r = 202 layers, 51 bins,
+2. build: the CUDA kernels from clima_tpu_torch/csrc/, one nvcc per source,
+   started together, with build seconds;
+3. each kernel against its plain PyTorch twin on the card, float64:
+   a. the weight-fused kernels of the radtran path at the flagship shapes
+      (IR two-stream with hard and soft surface and a thin layer; solar
+      two-stream with 4 zenith angles, with and without amean; RORR with 3
+      species at nbin 8 and 16), at smaller shapes the solar kernel's 5-8
+      zenith build (6 angles) and RORR at a run-time nbin (12), plus the
+      float32 near-tie RORR chain;
+   b. the unreduced kernels through their dispatchers
+      ``two_stream_{ir,solar_multi,solar}_auto`` at the shapes of the JAX
+      package's roofline entry point (scripts/roofline.py: rows = 256*60*8,
+      nz = 202, the 4 Gauss zenith cosines shared by all rows, or cycled
+      over the rows for the single-zenith kernel; IR with a hard and a soft
+      surface and a thin layer), the twins compared in row chunks;
+   kernel and twin times (CUDA events after a warm-up) and each kernel's
+   bound: the larger of its bytes over 3.35 TB/s and its float64
+   operations over 34 TFLOP/s (NVIDIA H100 SXM data sheet, non-tensor FP64);
+4. the radtran path: the synthetic nz=100, 4-zenith template built in
+   memory, ``Radtran`` constructed on the card and run on one column, then
+   the B=256 columns x K=4 bench-shaped batch (nz_r = 202 layers, 51 bins,
    8 gauss points, 3 k-species) through compute_opacity -> radiate_ir /
    radiate_solar -> integrate_fluxes, checked against the same calls with
-   the three kernels swapped for their plain twins (ISR/OLR rtol 1e-9),
-   with kernel launch counts, peak memory, and the median time of both.
+   the three kernels swapped for their plain twins (ISR/OLR rtol 1e-9);
+5. the adiabat path, the ``__graft_entry__.entry`` workload: the nz=50,
+   4-zenith template, ``AdiabatClimate`` on the card and
+   ``make_column_fns(c)["toa_fluxes"]`` over B=8 columns (moist adiabat ->
+   altitude -> opacity/RORR -> IR + solar two-stream -> TOA fluxes), checked
+   against the same call with the three kernels swapped for their twins
+   (rtol 1e-9); then one ``surface_temperature`` solve on the card for the
+   first column, checked against the same solve by the port on the CPU
+   (rtol 1e-8, run in a child process while the card works). Reports the
+   batch time, the three kernels' times at the path's shapes, the march's
+   operations per profile and its time with and without the CUDA graph of
+   one interval (and the capture seconds), the solve's time and
+   evaluations, and peak memory.
 
-The second-to-last line is a JSON object with each kernel's numbers; the
-last line is the device JSON.
+Each path runs with the kernels' launch counts set to 0 just before it and
+read just after; the kernels of a path must each have launched. The
+second-to-last line is a JSON object with each kernel's numbers; the last
+line is the device JSON.
 """
 
+import collections
 import contextlib
 import json
+import multiprocessing
 import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from unittest import mock
 
@@ -39,16 +66,24 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from clima_tpu_torch.adiabat import AdiabatClimate  # noqa: E402
+from clima_tpu_torch.adiabat import profile as adiabat_profile  # noqa: E402
 from clima_tpu_torch.config import species_from_dict  # noqa: E402
 from clima_tpu_torch.data import make_template  # noqa: E402
 from clima_tpu_torch.ops import cuda_build, rorr_cuda, twostream, twostream_cuda  # noqa: E402
+from clima_tpu_torch.ops.cuda_graph import CAPTURE_SECONDS  # noqa: E402
 from clima_tpu_torch.ops.rorr import k_rorr_mix  # noqa: E402
+from clima_tpu_torch.parallel import make_column_fns  # noqa: E402
 from clima_tpu_torch.physics import eqns  # noqa: E402
 from clima_tpu_torch.radtran import Radtran, opacity, radiate  # noqa: E402
 
 RTOL, ATOL = 1e-9, 1e-12
-B_COLS, K_INNER, NZ_TEMPLATE, N_ZEN = 256, 8, 100, 4
+B_COLS, K_INNER, NZ_TEMPLATE, N_ZEN = 256, 4, 100, 4
 NZ_R = 2 * NZ_TEMPLATE + 2  # flagship radiative grid (doubled + ghosts)
+ROOFLINE_ROWS, ROOFLINE_NZ = 256 * 60 * 8, 202  # scripts/roofline.py:69-71
+ENTRY_B, ENTRY_NZ = 8, 50  # __graft_entry__.entry
+HBM_BYTES_PER_S, FP64_OPS_PER_S = 3.35e12, 34e12  # H100 SXM data sheet (non-tensor FP64)
+F64 = 8
 
 KERNELS = {
     "two_stream_ir_weighted": dict(
@@ -63,8 +98,22 @@ KERNELS = {
         wrapper=rorr_cuda.k_rorr_mix_cuda,
         source="clima_tpu_torch/csrc/rorr.cu",
         replaces="clima_tpu/ops/pallas_rorr.py:145"),
+    "two_stream_ir": dict(
+        wrapper=twostream_cuda.two_stream_ir_auto,
+        source="clima_tpu_torch/csrc/twostream.cu",
+        replaces="clima_tpu/ops/pallas_twostream.py:303"),
+    "two_stream_solar_multi": dict(
+        wrapper=twostream_cuda.two_stream_solar_multi_auto,
+        source="clima_tpu_torch/csrc/twostream.cu",
+        replaces="clima_tpu/ops/pallas_twostream.py:107"),
+    "two_stream_solar": dict(
+        wrapper=twostream_cuda.two_stream_solar_auto,
+        source="clima_tpu_torch/csrc/twostream.cu",
+        replaces="clima_tpu/ops/pallas_twostream.py:68"),
 }
-RESULTS = {name: {"max_abs_err": 0.0} for name in KERNELS}
+RADTRAN_KERNELS = ("two_stream_ir_weighted", "two_stream_solar_multi_weighted", "k_rorr_mix")
+DISPATCH_KERNELS = ("two_stream_ir", "two_stream_solar_multi", "two_stream_solar")
+RESULTS = {name: {"max_abs_err": 0.0, "library_ms": None} for name in KERNELS}
 
 
 def sync(device):
@@ -83,6 +132,40 @@ def median_ms(fn, device, reps=10, warmup=2):
         sync(device)
         times.append(1e3 * (time.perf_counter() - t0))
     return statistics.median(times)
+
+
+def event_ms(fn, device, reps=5):
+    """Mean device time of fn() in ms over ``reps`` back-to-back runs, CUDA
+    events, after one warm-up run."""
+    fn()
+    sync(device)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    sync(device)
+    return start.elapsed_time(end) / reps
+
+
+def set_bound(name, nbytes, ops):
+    """The least time the card could take: bytes over the memory rate or
+    float64 operations over the FP64 peak, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP64_OPS_PER_S * 1e3
+    RESULTS[name]["bound_ms"] = max(t_bytes, t_ops)
+    RESULTS[name]["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+
+
+# float64 operations per (row, layer) of the two-stream kernels' arithmetic
+# (exp, sqrt and a divide count as one each; the pass-3 recomputation is not
+# counted): layer coefficients, the 2x2-block elimination, back substitution
+# and the edge fluxes. Solar: 25 shared + 25 per zenith for the coefficients
+# and sources, 25 for the elimination, 28 per zenith for elimination,
+# back substitution and fluxes, +10 per zenith for amean.
+def twostream_ops(solar, nzen=1, amean=False):
+    if not solar:
+        return 30 + 25 + 12 + 4 + 12
+    return 25 + 25 * nzen + 25 + nzen * (28 + (10 if amean else 0))
 
 
 def compare(name, got, want, rtol=RTOL, atol=ATOL):
@@ -121,15 +204,32 @@ def phase_environment():
     assert not torch.backends.cuda.matmul.allow_tf32
     dev = torch.device("cuda", 0)
     print(f"device {torch.cuda.get_device_name(dev)}  count {torch.cuda.device_count()}")
-    return dev
+    return dev, smi.splitlines()[0]
 
 
 def phase_build():
     print("== phase 2: build")
-    for name in ("twostream", "rorr"):
-        cuda_build.load_library(name)
+    names = ("twostream", "rorr")
+    errors = []
+
+    def build(name):
+        try:
+            cuda_build.load_library(name)
+        except Exception as e:  # re-raised below, after every build has ended
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=build, args=(n,)) for n in names]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    print(f"  built in {time.perf_counter() - t0:.2f} s wall")
+    for name in names:
         info = cuda_build.BUILD_INFO[name]
-        print(f"  {name}: built in {info['seconds']:.2f} s")
+        print(f"  {name}: {info['seconds']:.2f} s")
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
                 print("   ", line.strip())
@@ -144,7 +244,7 @@ def _atm(gen, rows, nz, device):
 
 def phase_kernels(device, B=B_COLS, nz=NZ_R, nw_ir=28, nw_sol=32, nw=51, nG=8,
                   nbin_list=(8, 16), reps=5):
-    print("== phase 3: kernels against their twins, float64")
+    print("== phase 3a: weight-fused kernels against their twins, float64")
     gen = torch.Generator(device=device).manual_seed(0)
     rand = lambda *shape: torch.rand(shape, generator=gen, dtype=torch.float64, device=device)
     wbin = torch.tensor(np.polynomial.legendre.leggauss(nG)[1] / 2.0, device=device)
@@ -161,9 +261,13 @@ def phase_kernels(device, B=B_COLS, nz=NZ_R, nw_ir=28, nw_sol=32, nw=51, nG=8,
                 twostream.two_stream_ir_weighted(*ir_args(hard)))
         sync(device)
     r = RESULTS["two_stream_ir_weighted"]
-    r["ms"] = median_ms(lambda: twostream_cuda.two_stream_ir_weighted_cuda(*ir_args(True)), device, reps)
-    r["plain_ms"] = median_ms(lambda: twostream.two_stream_ir_weighted(*ir_args(True)), device, reps)
-    print(f"  IR rows={rows} nz={nz}: kernel {r['ms']:.3f} ms, twin {r['plain_ms']:.3f} ms")
+    r["ms"] = event_ms(lambda: twostream_cuda.two_stream_ir_weighted_cuda(*ir_args(True)), device, reps)
+    r["plain_ms"] = event_ms(lambda: twostream.two_stream_ir_weighted(*ir_args(True)), device, 2)
+    set_bound("two_stream_ir_weighted",
+              F64 * (3 * rows * nz + rows + rows * (nz + 1) + nG + 2 * (rows // nG) * (nz + 1)),
+              rows * nz * twostream_ops(False))
+    print(f"  IR rows={rows} nz={nz}: kernel {r['ms']:.3f} ms, twin {r['plain_ms']:.3f} ms, "
+          f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
     del tau, w0, gt, emis, bpl
 
     # solar: rows = B*32*8, 4 zenith angles, with and without amean
@@ -180,12 +284,15 @@ def phase_kernels(device, B=B_COLS, nz=NZ_R, nw_ir=28, nw_sol=32, nw=51, nG=8,
                 twostream.two_stream_solar_multi_weighted(*sol_args, with_amean=am))
         sync(device)
     r = RESULTS["two_stream_solar_multi_weighted"]
-    r["ms"] = median_ms(lambda: twostream_cuda.two_stream_solar_multi_weighted_cuda(
+    r["ms"] = event_ms(lambda: twostream_cuda.two_stream_solar_multi_weighted_cuda(
         *sol_args, with_amean=False), device, reps)
-    r["plain_ms"] = median_ms(lambda: twostream.two_stream_solar_multi_weighted(
-        *sol_args, with_amean=False), device, reps)
+    r["plain_ms"] = event_ms(lambda: twostream.two_stream_solar_multi_weighted(
+        *sol_args, with_amean=False), device, 2)
+    set_bound("two_stream_solar_multi_weighted",
+              F64 * (3 * rows * nz + rows + 2 * N_ZEN + nG + 2 * (rows // nG) * (nz + 1)),
+              rows * nz * twostream_ops(True, N_ZEN))
     print(f"  solar rows={rows} nz={nz} nzen={N_ZEN}: kernel {r['ms']:.3f} ms, "
-          f"twin {r['plain_ms']:.3f} ms")
+          f"twin {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
     del tau, w0, gt, rs, sol_args
 
     # the 5-8 zenith instantiation (6 angles), with and without amean
@@ -216,13 +323,19 @@ def phase_kernels(device, B=B_COLS, nz=NZ_R, nw_ir=28, nw_sol=32, nw=51, nG=8,
         sync(device)
         if nbin == 8:
             r = RESULTS["k_rorr_mix"]
-            r["ms"] = median_ms(lambda: rorr_cuda.k_rorr_mix_cuda(tks, wb, wb_e), device, reps)
-            r["plain_ms"] = median_ms(
-                lambda: k_rorr_mix(tks.movedim(1, -1), wb_e).movedim(-1, 0), device, reps)
-            print(f"  RORR nbin=8 R={R}: kernel {r['ms']:.3f} ms, twin {r['plain_ms']:.3f} ms")
+            r["ms"] = event_ms(lambda: rorr_cuda.k_rorr_mix_cuda(tks, wb, wb_e), device, reps)
+            r["plain_ms"] = event_ms(
+                lambda: k_rorr_mix(tks.movedim(1, -1), wb_e).movedim(-1, 0), device, 2)
+            # the function's own work: per lane and species pair, nbin^2 key
+            # sums, a sort of the nbin^2 keys (n log2 n compares), the weight
+            # prefix sum and the overlap rebin (~2 operations per key)
+            npair = nbin * nbin
+            set_bound("k_rorr_mix", F64 * (3 * nbin * R + nbin * R + 2 * nbin + 1),
+                      2 * R * npair * (1 + np.log2(npair) + 1 + 2))
+            print(f"  RORR nbin=8 R={R}: kernel {r['ms']:.3f} ms, twin {r['plain_ms']:.3f} ms, "
+                  f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
         else:
-            t16 = median_ms(lambda: rorr_cuda.k_rorr_mix_cuda(tks, wb, wb_e), device, reps=2,
-                            warmup=1)
+            t16 = event_ms(lambda: rorr_cuda.k_rorr_mix_cuda(tks, wb, wb_e), device, reps=2)
             print(f"  RORR nbin={nbin} R={R}: kernel {t16:.3f} ms")
         del tks, got, want
 
@@ -256,6 +369,87 @@ def phase_kernels(device, B=B_COLS, nz=NZ_R, nw_ir=28, nw_sol=32, nw=51, nG=8,
     sync(device)
 
 
+def _in_chunks(fn, args, rows, dim, chunk=16384):
+    """fn over row chunks of the (rows, ...) arguments, outputs joined along
+    ``dim`` (the row axis of each output)."""
+    outs = [fn(*[a[i:i + chunk] if torch.is_tensor(a) and a.shape[:1] == (rows,) else a
+                 for a in args]) for i in range(0, rows, chunk)]
+    return [torch.cat([o[k] for o in outs], dim=dim[k]) for k in range(len(outs[0]))]
+
+
+def phase_dispatchers(device, rows=ROOFLINE_ROWS, nz=ROOFLINE_NZ, nzen=N_ZEN, reps=5):
+    print("== phase 3b: the unreduced kernels through their dispatchers, float64, "
+          f"rows={rows} nz={nz}")
+    gen = torch.Generator(device=device).manual_seed(2)
+    rand = lambda *shape: torch.rand(shape, generator=gen, dtype=torch.float64, device=device)
+    tau, w0, gt = _atm(gen, rows, nz, device)
+    tau[3, 7] = 1e-7  # the thin-layer branch
+    # scripts/roofline.py's IR inputs: emissivity 0.95 and the Planck
+    # function at 2e13 Hz of a 290 K -> 180 K column
+    emis = torch.full((rows,), 0.95, dtype=torch.float64, device=device)
+    T_col = torch.linspace(290.0, 180.0, nz + 1, dtype=torch.float64, device=device)
+    bpl = eqns.planck_fcn(torch.tensor(2.0e13, dtype=torch.float64, device=device),
+                          T_col).expand(rows, nz + 1).contiguous()
+    # zenith cosines: the template's Gauss-Legendre nodes, shared by all rows
+    # for the multi-zenith kernel and cycled over the rows (one per row) for
+    # the single-zenith kernel, as in a flattened (row, zenith) batch
+    ang, _ = eqns.zenith_angles_and_weights(nzen)
+    u0s = torch.tensor(np.cos(ang * np.pi / 180.0), device=device)
+    u0 = u0s[torch.arange(rows, device=device) % nzen].contiguous()
+    rs = 0.6 * rand(rows)
+    wrappers = {n: KERNELS[n]["wrapper"] for n in DISPATCH_KERNELS}
+
+    # the path: each dispatcher once, as scripts/roofline.py calls them
+    for w in wrappers.values():
+        w.launches = 0
+    ir = {hard: twostream_cuda.two_stream_ir_auto(tau, w0, gt, emis, hard, 1e-6, bpl)
+          for hard in (True, False)}
+    multi = twostream_cuda.two_stream_solar_multi_auto(tau, w0, gt, u0s, rs)
+    single = twostream_cuda.two_stream_solar_auto(tau, w0, gt, u0, rs)
+    sync(device)
+    launches = {n: w.launches for n, w in wrappers.items()}
+    print(f"  kernel launches on the dispatcher path: {launches}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a dispatcher never launched its kernel: {launches}")
+
+    for hard in (True, False):
+        compare("two_stream_ir", ir[hard], _in_chunks(
+            lambda *a: twostream.two_stream_ir(*a[:4], hard, 1e-6, a[4]),
+            (tau, w0, gt, emis, bpl), rows, (0, 0)))
+    compare("two_stream_solar_multi", multi, _in_chunks(
+        lambda a, b, c, d: twostream.two_stream_solar_multi(a, b, c, u0s, d),
+        (tau, w0, gt, rs), rows, (1, 1, 1, 1)))
+    compare("two_stream_solar", single, _in_chunks(
+        twostream.two_stream_solar, (tau, w0, gt, u0, rs), rows, (0, 0, 0, 0)))
+    del ir, multi, single
+    sync(device)
+
+    timed = {
+        "two_stream_ir": (lambda: twostream_cuda.two_stream_ir_auto(tau, w0, gt, emis, True, 1e-6, bpl),
+                          lambda: twostream.two_stream_ir(tau, w0, gt, emis, True, 1e-6, bpl)),
+        "two_stream_solar_multi": (
+            lambda: twostream_cuda.two_stream_solar_multi_auto(tau, w0, gt, u0s, rs),
+            lambda: twostream.two_stream_solar_multi(tau, w0, gt, u0s, rs)),
+        "two_stream_solar": (lambda: twostream_cuda.two_stream_solar_auto(tau, w0, gt, u0, rs),
+                             lambda: twostream.two_stream_solar(tau, w0, gt, u0, rs)),
+    }
+    set_bound("two_stream_ir", F64 * (3 * rows * nz + rows + rows * (nz + 1) + 2 * rows * (nz + 1)),
+              rows * nz * twostream_ops(False))
+    set_bound("two_stream_solar_multi",
+              F64 * (3 * rows * nz + rows + nzen + 3 * nzen * rows * (nz + 1) + nzen * rows),
+              rows * nz * twostream_ops(True, nzen, amean=True))
+    set_bound("two_stream_solar", F64 * (3 * rows * nz + 2 * rows + 3 * rows * (nz + 1) + rows),
+              rows * nz * twostream_ops(True, 1, amean=True))
+    for name, (kernel, twin) in timed.items():
+        r = RESULTS[name]
+        r["ms"] = event_ms(kernel, device, reps)
+        r["plain_ms"] = event_ms(twin, device, 2)
+        torch.cuda.empty_cache()
+        print(f"  {name}: kernel {r['ms']:.3f} ms, twin {r['plain_ms']:.3f} ms, "
+              f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
+    return launches
+
+
 def bench_inputs(sp, B, nz, device, seed=0):
     """The bench.py column batch: an Earth-like prescribed column, jittered."""
     zc = np.linspace(0.0, 7.0e6, nz)
@@ -284,13 +478,22 @@ def _rorr_twin(tau_ks_t, wbin, wbin_e):
 
 @contextlib.contextmanager
 def twin_path():
-    """Swap the main path's three kernel wrappers for their plain twins."""
+    """Swap the radtran path's three kernel wrappers for their plain twins."""
     with mock.patch.object(opacity, "k_rorr_mix_cuda", _rorr_twin), \
             mock.patch.object(radiate, "two_stream_ir_weighted_cuda",
                               twostream.two_stream_ir_weighted), \
             mock.patch.object(radiate, "two_stream_solar_multi_weighted_cuda",
                               twostream.two_stream_solar_multi_weighted):
         yield
+
+
+def _reset(names):
+    for name in names:
+        KERNELS[name]["wrapper"].launches = 0
+
+
+def _launches(names):
+    return {name: KERNELS[name]["wrapper"].launches for name in names}
 
 
 def make_radiate_many(rad, K):
@@ -309,7 +512,7 @@ def make_radiate_many(rad, K):
         r_ir = radiate.radiate_ir(ir_slice, op.freq, op.kset.wbin, opr, emis, True, 1e-6,
                                   T_surf, T)
         fup_ir, fdn_ir = radiate.integrate_fluxes(r_ir["fup_a"], r_ir["fdn_a"],
-                                          op.freq[ir_slice[0]:ir_slice[1] + 2])
+                                                  op.freq[ir_slice[0]:ir_slice[1] + 2])
         r_sol = radiate.radiate_solar(sol_slice, op.freq, op.wavl, op.kset.wbin, opr, alb,
                                       0.5, photons, zen_u, zw, compute_amean=False)
         fup_sol, fdn_sol = radiate.integrate_fluxes(r_sol["fup_a"], r_sol["fdn_a"],
@@ -327,32 +530,31 @@ def make_radiate_many(rad, K):
     return radiate_many
 
 
-def phase_main_path(device, B=B_COLS, K=K_INNER, nz_template=NZ_TEMPLATE, reps=10):
-    print("== phase 4: main path")
+def phase_radtran_path(device, B=B_COLS, K=K_INNER, nz_template=NZ_TEMPLATE, reps=5):
+    print("== phase 4: the radtran path")
     nz = 2 * nz_template + 2
     tpl = make_template(nz=nz_template, n_zenith=N_ZEN)
     sp = species_from_dict(tpl["species"])
     column, batch = bench_inputs(sp, B, nz, device)
-    wrappers = [k["wrapper"] for k in KERNELS.values()]
-    for w in wrappers:
-        w.launches = 0
+    _reset(RADTRAN_KERNELS)
     torch.cuda.reset_peak_memory_stats(device)
 
     # the facade on one column, then the bench-shaped batch, through the kernels
     rad = Radtran(sp.gas_names, [], tpl["settings"], tpl["star"], N_ZEN, 0.25, nz,
-                  tpl["datadir"], device=device)
+                  tpl["datadir"])
+    assert rad.device.type == "cuda"
     isr1, olr1 = rad.TOA_fluxes(290.0, *column)
     fup_sol = rad.wrk_sol.fup_n
     radiate_many = make_radiate_many(rad, K)
     isr, olr = radiate_many(*batch)
     sync(device)
-    launches = {name: k["wrapper"].launches for name, k in KERNELS.items()}
+    launches = _launches(RADTRAN_KERNELS)
     peak = torch.cuda.max_memory_allocated(device)
     print(f"  Radtran one column: ISR {isr1:.6f} OLR {olr1:.6f} mW/m^2; "
           f"wrk_sol.fup_n shape {fup_sol.shape}")
     print(f"  batch B={B} K={K} nz_r={nz}: ISR mean {float(isr.mean()) / K:.6f} "
           f"OLR mean {float(olr.mean()) / K:.6f} mW/m^2")
-    print(f"  kernel launches on the main path: {launches}")
+    print(f"  kernel launches on the radtran path: {launches}")
     print(f"  peak device memory: {peak / 2**30:.3f} GiB")
     if not (np.isfinite([isr1, olr1]).all() and bool(torch.isfinite(isr).all())
             and bool(torch.isfinite(olr).all())):
@@ -360,7 +562,7 @@ def phase_main_path(device, B=B_COLS, K=K_INNER, nz_template=NZ_TEMPLATE, reps=1
     if isr.shape != (B,) or olr.shape != (B,) or fup_sol.shape != (nz + 1,):
         raise AssertionError("unexpected output shapes")
     if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
+        raise AssertionError(f"a kernel of the radtran path never launched: {launches}")
 
     # the same column and batch through the plain twins
     rad_cpu = Radtran(sp.gas_names, [], tpl["settings"], tpl["star"], N_ZEN, 0.25, nz,
@@ -375,31 +577,224 @@ def phase_main_path(device, B=B_COLS, K=K_INNER, nz_template=NZ_TEMPLATE, reps=1
             return radiate_many(*args)
 
     isr_p, olr_p = radiate_many_plain(*batch)
-    if any(k["wrapper"].launches != launches[name] for name, k in KERNELS.items()):
+    if _launches(RADTRAN_KERNELS) != launches:
         raise AssertionError("the twin path launched a kernel")
     compare("batch ISR/OLR (kernel vs twin path)", [isr, olr], [isr_p, olr_p], atol=0.0)
 
     t_kernel = median_ms(lambda: radiate_many(*batch), device, reps, warmup=1)
-    t_plain = median_ms(lambda: radiate_many_plain(*batch), device, reps, warmup=1)
+    t_plain = median_ms(lambda: radiate_many_plain(*batch), device, 3, warmup=1)
     solves = (rad.ir.nw * rad.op.kset.nbin + rad.sol.nw * rad.op.kset.nbin * N_ZEN) * B * K
     print(f"  batch time (median of {reps}): kernel path {t_kernel:.3f} ms, "
-          f"plain path {t_plain:.3f} ms")
+          f"plain path (median of 3) {t_plain:.3f} ms")
     print(f"  two-stream solves/s: kernel path {solves / (t_kernel / 1e3):.6e}, "
           f"plain path {solves / (t_plain / 1e3):.6e} ({solves} solves per batch)")
     return launches
 
 
+def entry_batch(c, B=ENTRY_B):
+    """__graft_entry__.entry's inputs: T_surf linspace(270, 300, B) and
+    __graft_entry__._p_batch's partial pressures."""
+    P_i = np.full((B, c.sp.ng), 1.0e-15)
+    P_i[:, c.species_names.index("H2O")] = 270.0e6
+    P_i[:, c.species_names.index("CO2")] = np.linspace(200.0, 800.0, B)
+    P_i[:, c.species_names.index("N2")] = 1.0e6
+    return np.linspace(270.0, 300.0, B), P_i
+
+
+def _entry_model(device):
+    tpl = make_template(nz=ENTRY_NZ, n_zenith=N_ZEN)
+    return AdiabatClimate(tpl["species"], tpl["settings"], tpl["star"], tpl["datadir"],
+                          device=device)
+
+
+def _cpu_surface_temperature(conn):
+    """Child process: the surface_temperature solve of the entry batch's
+    first column by the port on the CPU; sends (T_surf, seconds, error)."""
+    try:
+        torch.set_num_threads(2)
+        c = _entry_model("cpu")
+        _, P_i = entry_batch(c)
+        t0 = time.perf_counter()
+        conn.send((c.surface_temperature(P_i[0], T_guess=280.0), time.perf_counter() - t0, None))
+    except Exception as e:  # reported to the parent, which raises
+        conn.send((None, None, repr(e)))
+    finally:
+        conn.close()
+
+
+def march_ops_per_profile(c, T_surf, P_i, nz):
+    """Eager tensor operations of one make_profile_core call on these columns,
+    counted with a dispatch counter on the CPU at nz=2 and nz=3 and
+    extrapolated to ``nz`` (the march's count is exactly linear in the number
+    of intervals)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    counts = []
+    for n in (2, 3):
+        par = adiabat_profile.AdiabatParams.from_species(
+            c.sp, n, c.planet_mass, c.planet_radius, c.P_top, c.substeps, "cpu")
+        Count.n = 0
+        with Count():
+            adiabat_profile.make_profile_core(par, torch.ones(c.sp.ng, dtype=torch.float64),
+                                              torch.tensor(T_surf), torch.tensor(P_i),
+                                              float(c.T_trop))
+        counts.append(Count.n)
+    return counts[0] + (counts[1] - counts[0]) * (nz - 2)
+
+
+def phase_adiabat_path(device, smi):
+    print(f"== phase 5: the adiabat path (__graft_entry__.entry: B={ENTRY_B}, nz={ENTRY_NZ}, "
+          f"{N_ZEN} zenith angles)")
+    ctx = multiprocessing.get_context("spawn")
+    parent_conn, child_conn = ctx.Pipe(duplex=False)
+    child = ctx.Process(target=_cpu_surface_temperature, args=(child_conn,))
+    child.start()
+    child_conn.close()
+    try:
+        return _adiabat_on_card(device, smi, parent_conn)
+    finally:
+        child.join(timeout=900)
+        if child.is_alive():
+            child.terminate()
+            child.join()
+            raise AssertionError("the CPU surface_temperature solve did not finish in 900 s")
+
+
+def _adiabat_on_card(device, smi, conn):
+    c = _entry_model(None)
+    assert c.device.type == "cuda"
+    T_np, P_np = entry_batch(c)
+    T_surf = torch.tensor(T_np, device=device)
+    P_i = torch.tensor(P_np, device=device)
+    fns = make_column_fns(c)
+
+    torch.cuda.reset_peak_memory_stats(device)
+    _reset(RADTRAN_KERNELS)
+    t0 = time.perf_counter()
+    isr, olr = fns["toa_fluxes"](T_surf, P_i)
+    sync(device)
+    first_s = time.perf_counter() - t0
+    launches = _launches(RADTRAN_KERNELS)
+    print(f"  first toa_fluxes batch: {first_s:.2f} s; CUDA graph capture seconds "
+          f"{dict((k, round(v, 3)) for k, v in CAPTURE_SECONDS.items())}")
+    print(f"  ISR {isr.cpu().numpy()} mW/m^2")
+    print(f"  OLR {olr.cpu().numpy()} mW/m^2")
+    print(f"  kernel launches on the adiabat path (one batch): {launches}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the adiabat path never launched: {launches}")
+    if isr.shape != (ENTRY_B,) or not (bool(torch.isfinite(isr).all())
+                                       and bool(torch.isfinite(olr).all())):
+        raise AssertionError("non-finite or misshapen TOA fluxes")
+
+    with twin_path():
+        isr_p, olr_p = fns["toa_fluxes"](T_surf, P_i)
+    if _launches(RADTRAN_KERNELS) != launches:
+        raise AssertionError("the twin path launched a kernel")
+    compare("entry ISR/OLR (kernel vs twin path)", [isr, olr], [isr_p, olr_p], atol=0.0)
+
+    batch_ms = median_ms(lambda: fns["toa_fluxes"](T_surf, P_i), device, reps=10, warmup=1)
+    peak = torch.cuda.max_memory_allocated(device)
+    print(f"  toa_fluxes batch time (median of 10, {smi}): {batch_ms:.3f} ms; "
+          f"peak device memory {peak / 2**30:.3f} GiB")
+
+    # the three kernels at this path's shapes: CUDA events around each
+    # wrapper call of one batch, beside each one's bound at these shapes
+    events = []
+
+    def timed(name, wrapper):
+        def run(*args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = wrapper(*args, **kwargs)
+            end.record()
+            events.append((name, start, end))
+            return out
+        return run
+
+    with mock.patch.object(opacity, "k_rorr_mix_cuda", timed("k_rorr_mix", rorr_cuda.k_rorr_mix_cuda)), \
+            mock.patch.object(radiate, "two_stream_ir_weighted_cuda", timed(
+                "two_stream_ir_weighted", twostream_cuda.two_stream_ir_weighted_cuda)), \
+            mock.patch.object(radiate, "two_stream_solar_multi_weighted_cuda", timed(
+                "two_stream_solar_multi_weighted", twostream_cuda.two_stream_solar_multi_weighted_cuda)):
+        fns["toa_fluxes"](T_surf, P_i)
+    sync(device)
+    path_ms = {name: start.elapsed_time(end) for name, start, end in events}
+    nz_r, nG, nw_ir, nw_sol, nw = c.nz_r, c.rad.op.kset.nbin, c.rad.ir.nw, c.rad.sol.nw, c.rad.op.nw
+    rows_ir, rows_sol, R = ENTRY_B * nw_ir * nG, ENTRY_B * nw_sol * nG, ENTRY_B * nw * nz_r
+    bounds = {
+        "two_stream_ir_weighted": (F64 * (3 * rows_ir * nz_r + rows_ir + rows_ir * (nz_r + 1) + nG
+                                          + 2 * (rows_ir // nG) * (nz_r + 1)),
+                                   rows_ir * nz_r * twostream_ops(False)),
+        "two_stream_solar_multi_weighted": (
+            F64 * (3 * rows_sol * nz_r + rows_sol + 2 * N_ZEN + nG
+                   + 2 * (rows_sol // nG) * (nz_r + 1)),
+            rows_sol * nz_r * twostream_ops(True, N_ZEN)),
+        "k_rorr_mix": (F64 * (4 * nG * R + 2 * nG + 1),
+                       2 * R * nG * nG * (1 + np.log2(nG * nG) + 1 + 2)),
+    }
+    for name, (nbytes, ops) in bounds.items():
+        bound = max(nbytes / HBM_BYTES_PER_S, ops / FP64_OPS_PER_S) * 1e3
+        print(f"  {name} at this path's shapes: {path_ms[name]:.4f} ms (CUDA events around the "
+              f"wrapper call), bound {bound:.4f} ms")
+
+    # the march alone: its time with the interval graph and eagerly
+    RH = torch.ones(c.sp.ng, dtype=torch.float64, device=device)
+    profile = lambda: adiabat_profile.make_profile_core(c._par, RH, T_surf, P_i, float(c.T_trop))
+    profile_ms = median_ms(profile, device, reps=3, warmup=1)
+    eager = lambda fn, *args: (fn, fn(*args))  # graphed() replaced by plain calls
+    with mock.patch.object(adiabat_profile, "graphed", eager):
+        eager_ms = median_ms(profile, device, reps=1, warmup=0)
+    ops = march_ops_per_profile(c, T_np, P_np, ENTRY_NZ)
+    print(f"  one profile (B={ENTRY_B}, {2 * ENTRY_NZ} intervals x {c.substeps} substeps): "
+          f"{profile_ms:.3f} ms with the interval graph, {eager_ms:.3f} ms eager; "
+          f"{ops} tensor operations (CPU dispatch count)")
+
+    # one surface_temperature solve on the card, against the CPU port's
+    evals = collections.Counter()
+    toa = c.TOA_fluxes
+
+    def counted(*args):
+        evals["toa"] += 1
+        return toa(*args)
+
+    c.TOA_fluxes = counted
+    t0 = time.perf_counter()
+    T_card = c.surface_temperature(P_np[0], T_guess=280.0)
+    solve_s = time.perf_counter() - t0
+    print(f"  surface_temperature on the card: {T_card:.10f} K in {solve_s:.2f} s, "
+          f"{evals['toa']} TOA_fluxes evaluations")
+    T_cpu, cpu_s, err = conn.recv()
+    if err is not None:
+        raise AssertionError(f"the CPU surface_temperature solve failed: {err}")
+    print(f"  surface_temperature by the port on the CPU: {T_cpu:.10f} K in {cpu_s:.2f} s")
+    rel = abs(T_card - T_cpu) / abs(T_cpu)
+    print(f"  card vs CPU: relative difference {rel:.3e}")
+    if not rel <= 1e-8:
+        raise AssertionError("surface_temperature on the card disagrees with the CPU port")
+    return launches
+
+
 def main():
     t0 = time.perf_counter()
-    device = phase_environment()
+    device, smi = phase_environment()
     phase_build()
     phase_kernels(device)
-    launches = phase_main_path(device)
+    launches = phase_dispatchers(device)
+    phase_radtran_path(device)
+    launches.update(phase_adiabat_path(device, smi))
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [dict(name=name, route="cuda", source=k["source"], replaces=k["replaces"],
-                    launches=launches[name], max_abs_err=RESULTS[name]["max_abs_err"],
-                    ms=RESULTS[name]["ms"], plain_ms=RESULTS[name]["plain_ms"])
+                    launches=launches[name], **{key: RESULTS[name][key] for key in keys})
                for name, k in KERNELS.items()]
     print(f"total {time.perf_counter() - t0:.1f} s")
+    print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -4,9 +4,11 @@ Reference: ``src/clima_types.f90:109-150`` (Species = atoms + gases + particles)
 and ``src/clima_types_create.f90:9-354`` (YAML parsing, Shomate/NASA9 thermo).
 
 The per-gas thermodynamic polynomials are padded to a common number of
-temperature ranges and stacked into host arrays. Heat-capacity evaluation
-and the saturation model are not part of this module yet: each gas keeps its
-validated LinearLatentHeat parameters as a plain dict (or None).
+temperature ranges and stacked into arrays, so that heat-capacity evaluation
+(`heat_capacity_eval`, clima_eqns.f90:105-133) is one gather + polynomial
+over all gases, with no per-species branching. Each gas keeps its validated
+LinearLatentHeat parameters as a plain dict (or None); the saturation model
+stacks them (:meth:`..physics.saturation.SaturationParams.from_gas_list`).
 """
 
 from __future__ import annotations
@@ -15,13 +17,15 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
 
+from .. import constants as const
 from ..utils.errors import ClimaException
 
 SHOMATE = 0
 NASA9 = 1
 
-__all__ = ["Species", "GasThermo", "load_species", "species_from_dict"]
+__all__ = ["Species", "GasThermo", "heat_capacity", "load_species", "species_from_dict"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,11 +35,61 @@ class GasThermo:
     temps: (ng, max_ranges+1) range edges, padded by repeating the last edge.
     coeffs: (ng, max_ranges, 9) polynomial coefficients (Shomate uses 7).
     model: (ng,) int, SHOMATE or NASA9.
+    poly: (ng*max_ranges, 7) tensor tables only (:meth:`to`): each range's
+    heat capacity as one polynomial in [T^-2, T^-1, 1, T, T^2, T^3, T^4],
+    J/(mol K); None on the host. base: (ng,) row of each gas's first range
+    in ``poly`` (tensor tables only).
     """
 
     temps: np.ndarray
     coeffs: np.ndarray
     model: np.ndarray
+    poly: Optional[torch.Tensor] = None
+    base: Optional[torch.Tensor] = None
+
+    def to(self, device, dtype=torch.float64) -> "GasThermo":
+        """The same tables as tensors on ``device`` (temps/coeffs in ``dtype``)."""
+        c = np.asarray(self.coeffs, dtype=np.float64)
+        shomate = np.stack([c[..., 4] * 1.0e6, np.zeros_like(c[..., 0]), c[..., 0],
+                            c[..., 1] / 1.0e3, c[..., 2] / 1.0e6, c[..., 3] / 1.0e9,
+                            np.zeros_like(c[..., 0])], axis=-1)
+        nasa9 = const.Rgas_si * c[..., :7]
+        poly = np.where((np.asarray(self.model) == SHOMATE)[:, None, None], shomate, nasa9)
+        t = lambda x, dt: torch.as_tensor(np.asarray(x), dtype=dt, device=device)
+        ng, n_ranges = c.shape[:2]
+        return GasThermo(t(self.temps, dtype), t(self.coeffs, dtype), t(self.model, torch.int32),
+                         t(poly.reshape(-1, 7), dtype), t(np.arange(ng) * n_ranges, torch.long))
+
+
+def heat_capacity(thermo: GasThermo, T):
+    """Heat capacity of every gas at temperature T, J/(mol K).
+
+    ``T`` (...) tensor, one temperature per entry; returns (..., ng).
+    ``thermo`` holds tensors on T's device (:meth:`GasThermo.to`); numpy
+    tables are moved there on the fly. Each gas's Shomate or NASA-9
+    polynomial (eqns.heat_capacity_shomate / _nasa9, clima_eqns.f90:82-103)
+    is evaluated as one polynomial in powers of T. Out-of-range temperatures
+    return NaN: the reference's heat_capacity_eval reports "not found"
+    outside the tables' ranges and every caller turns that into a hard error
+    (clima_eqns.f90:105-133), which keeps solver trial steps inside physical
+    territory. The NaN propagates to the facade, whose finiteness checks
+    raise ClimaException.
+    """
+    if not torch.is_tensor(T):
+        T = torch.tensor(T, dtype=torch.float64)
+    if thermo.poly is None:
+        thermo = thermo.to(T.device, T.dtype)
+    temps = thermo.temps
+    n_ranges = temps.shape[1] - 1
+    Tx = T[..., None]  # (..., 1) against (ng,)
+    idx = torch.sum(Tx[..., None] >= temps[:, :-1], dim=-1) - 1
+    flat = torch.clamp(idx, 0, n_ranges - 1) + thermo.base
+    inv = 1.0 / Tx
+    T2 = Tx * Tx
+    powers = torch.cat([inv * inv, inv, torch.ones_like(Tx), Tx, T2, T2 * Tx, T2 * T2], dim=-1)
+    cp = torch.sum(thermo.poly[flat] * powers[..., None, :], dim=-1)
+    in_range = (Tx >= temps[:, 0]) & (Tx < temps[:, -1])
+    return cp.masked_fill(~in_range, torch.nan)
 
 
 @dataclasses.dataclass

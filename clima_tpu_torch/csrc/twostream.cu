@@ -1,5 +1,6 @@
-// Toon et al. (1989) two-stream solves with the gauss- and zenith-weight
-// reductions fused, for Hopper (sm_90a), float and double.
+// Toon et al. (1989) two-stream solves for Hopper (sm_90a), float and double:
+// weight-fused (the gauss and zenith sums done in the kernel) and unreduced
+// (every row's edge fluxes written out).
 //
 // Replaces the JAX package's Pallas TPU kernels
 //   clima_tpu/ops/pallas_twostream.py::two_stream_ir_weighted_pallas
@@ -7,6 +8,13 @@
 //   clima_tpu/ops/pallas_twostream.py::two_stream_solar_multi_weighted_pallas
 //     (_solar_multi_weighted_kernel): delta-Eddington quadrature solar, all
 //     zenith angles through one elimination, amean optional
+//   clima_tpu/ops/pallas_twostream.py::two_stream_ir_pallas (_ir_kernel):
+//     IR per row, unreduced
+//   clima_tpu/ops/pallas_twostream.py::two_stream_solar_multi_pallas
+//     (_solar_multi_kernel): multi-zenith solar per row, unreduced, with the
+//     surface radiance
+//   clima_tpu/ops/pallas_twostream.py::two_stream_solar_pallas
+//     (_solar_kernel): single-zenith solar, one zenith cosine per row
 // and computes what clima_tpu/ops/twostream.py computes for them.
 //
 // Design. One thread owns one (column, bin, gauss point) row and solves its
@@ -20,15 +28,18 @@
 //   pass 1  forward: layer coefficients, elimination, p and q to scratch
 //   pass 2  backward: u_k overwrites p_k in scratch
 //   pass 3  forward: recompute the layer coefficients (bit-identical to
-//           pass 1), rebuild the edge fluxes, sum the zenith angles in
-//           registers and the nG rows of a gauss group in shared memory in a
-//           fixed order. A block holds whole gauss groups; no atomics, so
-//           results repeat bit for bit.
+//           pass 1) and rebuild the edge fluxes. Weighted (REDUCE): sum the
+//           zenith angles in registers and the nG rows of a gauss group in
+//           shared memory in a fixed order; a block holds whole gauss groups;
+//           no atomics, so results repeat bit for bit. Unreduced: each thread
+//           stores its own row's edges (and the surface radiance), per zenith.
 // Scratch is laid out (nz, values, rows), rows fastest, so its accesses are
 // coalesced. What bounds it: the per-thread sequential recurrence over nz
 // (latency of dependent double-precision divides and exps) and, at the
 // flagship shapes, the strided (rows, nz) reads of tau/w0/g; recomputing
 // the coefficients in pass 3 trades cheap arithmetic for not storing them.
+// The unreduced stores are strided too (a thread writes one (rows, nz+1)
+// row), so they are not coalesced; that is left as it is for now.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,6 +55,18 @@ struct Layer {
   T cp0[NR], cpb[NR], cm0[NR], cmb[NR];
   T dir_b[NR];  // solar: direct beam at the layer bottom (u0 * etb)
   T tau;        // solar: delta-scaled optical depth (advances tauc)
+};
+
+// The zenith cosines a thread works with: shared by the block (multi-zenith
+// kernels) or one per row (ROW, the single-zenith kernel).
+template <typename T, bool ROW>
+struct ZenithCosines {
+  const T* shared;
+  T row;
+  __device__ __forceinline__ T operator[](int r) const {
+    if constexpr (ROW) return row;
+    else return shared[r];
+  }
 };
 
 template <typename T, int NR>
@@ -74,9 +97,9 @@ __device__ __forceinline__ void ir_layer(T tau, T w0, T gt, T b_top, T b_bot, T 
   c.cmb[0] = norm * (b0n + b1n * (tau - inv_g));
 }
 
-template <typename T, int NR>
+template <typename T, int NR, typename U0>
 __device__ __forceinline__ void solar_layer(T tau_in, T w0_in, T gt_in, T tauc,
-                                            const T* u0s, int nzen, Layer<T, NR>& c) {
+                                            const U0& u0s, int nzen, Layer<T, NR>& c) {
   const T s3 = T(kSqrt3);
   T gg = gt_in * gt_in;
   T tau = tau_in * (T(1) - w0_in * gg);
@@ -109,10 +132,10 @@ __device__ __forceinline__ void solar_layer(T tau_in, T w0_in, T gt_in, T tauc,
   }
 }
 
-template <typename T, bool SOLAR, int NR>
+template <typename T, bool SOLAR, int NR, typename U0>
 __device__ __forceinline__ void load_layer(int64_t row, int k, int nz, const T* tau,
                                            const T* w0, const T* gt, const T* bpl,
-                                           T tau_min, T tauc, const T* u0s, int nzen,
+                                           T tau_min, T tauc, const U0& u0s, int nzen,
                                            Layer<T, NR>& c) {
   int64_t i = row * nz + k;
   if constexpr (SOLAR) {
@@ -144,22 +167,28 @@ __device__ __forceinline__ void reduce_store(T* sm, const T* v, bool lead, const
   __syncthreads();
 }
 
-template <typename T, bool SOLAR, bool AMEAN, int NR>
-__global__ void twostream_weighted_kernel(
+// REDUCE: outputs (rows/nG, nz+1), zenith- and gauss-weighted.
+// !REDUCE: outputs (nzen, rows, nz+1) (IR: (rows, nz+1)); out_srad (nzen, rows).
+// ROW: one zenith cosine per row, u0s_g (rows,), NR = 1.
+template <typename T, bool SOLAR, bool AMEAN, int NR, bool REDUCE, bool ROW>
+__global__ void twostream_kernel(
     const T* __restrict__ tau, const T* __restrict__ w0, const T* __restrict__ gt,
     const T* __restrict__ surf, const T* __restrict__ bpl, const T* __restrict__ u0s_g,
     const T* __restrict__ zw_g, int nzen, const T* __restrict__ wbin_g, int nG,
     int64_t rows, int nz, int hard, T tau_min, T* __restrict__ scratch,
-    T* __restrict__ out_am, T* __restrict__ out_fup, T* __restrict__ out_fdn) {
+    T* __restrict__ out_am, T* __restrict__ out_fup, T* __restrict__ out_fdn,
+    T* __restrict__ out_srad) {
   constexpr int NOUT = AMEAN ? 3 : 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sm = reinterpret_cast<T*>(smem_raw);  // NOUT * blockDim
-  __shared__ T u0s[NR], zw[NR], wbin[1024];
+  T* sm = reinterpret_cast<T*>(smem_raw);  // NOUT * blockDim (REDUCE only)
+  __shared__ T u0s[NR], zw[NR], wbin[REDUCE ? 1024 : 1];
   const int nrhs = SOLAR ? nzen : 1;
-  for (int i = threadIdx.x; i < nG; i += blockDim.x) wbin[i] = wbin_g[i];
-  if (SOLAR && threadIdx.x < nzen) {
+  if constexpr (REDUCE) {
+    for (int i = threadIdx.x; i < nG; i += blockDim.x) wbin[i] = wbin_g[i];
+  }
+  if (SOLAR && !ROW && threadIdx.x < nzen) {
     u0s[threadIdx.x] = u0s_g[threadIdx.x];
-    zw[threadIdx.x] = zw_g[threadIdx.x];
+    if (REDUCE) zw[threadIdx.x] = zw_g[threadIdx.x];
   }
   __syncthreads();
 
@@ -171,6 +200,7 @@ __global__ void twostream_weighted_kernel(
   const int64_t stride_v = rows, stride_k = int64_t(nval) * rows;
   T* sc = scratch + row;
   const T u1 = SOLAR ? T(1) / T(kSqrt3) : T(0.5);
+  ZenithCosines<T, ROW> u0v{u0s, (ROW && active) ? u0s_g[row] : T(1)};
 
   // surface boundary: reflectivity Rs and source Ss (solar: per zenith)
   T Rs = T(0), Ss_ir = T(0);
@@ -195,7 +225,7 @@ __global__ void twostream_weighted_kernel(
   if (active) {
     Layer<T, NR> cur, nxt;
     T tauc = T(0);
-    load_layer<T, SOLAR, NR>(row, 0, nz, tau, w0, gt, bpl, tau_min, tauc, u0s, nzen, cur);
+    load_layer<T, SOLAR, NR>(row, 0, nz, tau, w0, gt, bpl, tau_min, tauc, u0v, nzen, cur);
     T Aev = T(0), Bev = cur.e1, Dev = -cur.e2;
     T Eev[NR], p1prev[NR];
 #pragma unroll
@@ -205,7 +235,7 @@ __global__ void twostream_weighted_kernel(
       T Aod, Bod, Dod, Eod[NR], nAev = T(0), nBev = T(0), nDev = T(0), nEev[NR];
       if (k < nz - 1) {
         if constexpr (SOLAR) tauc += cur.tau;
-        load_layer<T, SOLAR, NR>(row, k + 1, nz, tau, w0, gt, bpl, tau_min, tauc, u0s,
+        load_layer<T, SOLAR, NR>(row, k + 1, nz, tau, w0, gt, bpl, tau_min, tauc, u0v,
                                  nzen, nxt);
         Aod = nxt.e2 * cur.e1 - cur.e3 * nxt.e4;
         Bod = cur.e2 * nxt.e2 - cur.e4 * nxt.e4;
@@ -275,10 +305,11 @@ __global__ void twostream_weighted_kernel(
     }
   }
 
-  // ---- pass 3: edge fluxes and the weighted reductions ----
+  // ---- pass 3: edge fluxes, reduced or stored per row ----
   T* outs[3];
   if (AMEAN) { outs[0] = out_fup; outs[1] = out_fdn; outs[2] = out_am; }
   else { outs[0] = out_fup; outs[1] = out_fdn; outs[2] = nullptr; }
+  const int64_t ne = nz + 1;
   T tauc = T(0);
   for (int k = 0; k < nz; ++k) {
     T top[NOUT], bot[NOUT];
@@ -286,7 +317,7 @@ __global__ void twostream_weighted_kernel(
     for (int o = 0; o < NOUT; ++o) { top[o] = T(0); bot[o] = T(0); }
     if (active) {
       Layer<T, NR> c;
-      load_layer<T, SOLAR, NR>(row, k, nz, tau, w0, gt, bpl, tau_min, tauc, u0s, nzen, c);
+      load_layer<T, SOLAR, NR>(row, k, nz, tau, w0, gt, bpl, tau_min, tauc, u0v, nzen, c);
       if constexpr (SOLAR) tauc += c.tau;
       const T* s = sc + k * stride_k;
 #pragma unroll
@@ -297,80 +328,124 @@ __global__ void twostream_weighted_kernel(
           T fup_b = y1 * c.e1 + y2 * c.e2 + c.cpb[r];
           T fdn_b = y1 * c.e3 + y2 * c.e4 + c.cmb[r];
           if constexpr (SOLAR) {
-            T u0 = u0s[r], wz = zw[r];
+            T u0 = u0v[r];
             T dir_t = u0;  // u0 * Fs_pi, Fs_pi = 1
-            top[0] += wz * fup_t;
-            top[1] += wz * dir_t;
-            bot[0] += wz * fup_b;
-            bot[1] += wz * (fdn_b + c.dir_b[r]);
-            if (AMEAN) {
-              top[NOUT - 1] += wz * ((T(1) / u1) * fup_t + dir_t / u0);
-              bot[NOUT - 1] += wz * ((T(1) / u1) * (y1 * (c.e1 + c.e3) + y2 * (c.e2 + c.e4)
-                                                    + c.cpb[r] + c.cmb[r])
-                                     + c.dir_b[r] / u0);
+            T am_t = (T(1) / u1) * fup_t + dir_t / u0;
+            T am_b = (T(1) / u1) * (y1 * (c.e1 + c.e3) + y2 * (c.e2 + c.e4) + c.cpb[r]
+                                    + c.cmb[r])
+                     + c.dir_b[r] / u0;
+            if constexpr (REDUCE) {
+              T wz = zw[r];
+              top[0] += wz * fup_t;
+              top[1] += wz * dir_t;
+              bot[0] += wz * fup_b;
+              bot[1] += wz * (fdn_b + c.dir_b[r]);
+              if (AMEAN) {
+                top[NOUT - 1] += wz * am_t;
+                bot[NOUT - 1] += wz * am_b;
+              }
+            } else {
+              const int64_t base = (int64_t(r) * rows + row) * ne;
+              if (k == 0) {
+                out_fup[base] = fup_t;
+                out_fdn[base] = dir_t;
+                out_am[base] = am_t;
+              }
+              out_fup[base + k + 1] = fup_b;
+              out_fdn[base + k + 1] = fdn_b + c.dir_b[r];
+              out_am[base + k + 1] = am_b;
+              if (k == nz - 1) out_srad[int64_t(r) * rows + row] = fdn_b / u1 + exp(-tauc / u0);
             }
-          } else {
+          } else if constexpr (REDUCE) {
             top[0] = fup_t;
             bot[0] = fup_b;
             bot[1] = fdn_b;
+          } else {
+            const int64_t base = row * ne;
+            if (k == 0) {
+              out_fup[base] = fup_t;
+              out_fdn[base] = T(0);
+            }
+            out_fup[base + k + 1] = fup_b;
+            out_fdn[base + k + 1] = fdn_b;
           }
         }
       }
     }
-    if (k == 0) reduce_store<T, NOUT>(sm, top, lead, wbin, nG, grp, 0, nz, outs);
-    reduce_store<T, NOUT>(sm, bot, lead, wbin, nG, grp, k + 1, nz, outs);
+    if constexpr (REDUCE) {
+      if (k == 0) reduce_store<T, NOUT>(sm, top, lead, wbin, nG, grp, 0, nz, outs);
+      reduce_store<T, NOUT>(sm, bot, lead, wbin, nG, grp, k + 1, nz, outs);
+    }
   }
 }
 
-template <typename T, bool SOLAR, bool AMEAN, int NR>
+template <typename T, bool SOLAR, bool AMEAN, int NR, bool REDUCE, bool ROW>
 int launch(const void* tau, const void* w0, const void* gt, const void* surf,
            const void* bpl, const void* u0s, const void* zw, int nzen, const void* wbin,
            int nG, long long rows, int nz, int hard, double tau_min, void* scratch,
-           void* out_am, void* out_fup, void* out_fdn, cudaStream_t stream) {
+           void* out_am, void* out_fup, void* out_fdn, void* out_srad, cudaStream_t stream) {
   constexpr int NOUT = AMEAN ? 3 : 2;
-  int per = 128 / nG;
-  if (per < 1) per = 1;
-  int threads = per * nG;
-  long long groups = rows / nG;
-  long long blocks = (groups + per - 1) / per;
-  size_t smem = size_t(NOUT) * threads * sizeof(T);
-  twostream_weighted_kernel<T, SOLAR, AMEAN, NR><<<dim3(unsigned(blocks)), threads, smem, stream>>>(
+  int threads = 128;
+  long long blocks = (rows + threads - 1) / threads;
+  size_t smem = 0;
+  if (REDUCE) {
+    int per = 128 / nG;
+    if (per < 1) per = 1;
+    threads = per * nG;
+    long long groups = rows / nG;
+    blocks = (groups + per - 1) / per;
+    smem = size_t(NOUT) * threads * sizeof(T);
+  }
+  twostream_kernel<T, SOLAR, AMEAN, NR, REDUCE, ROW><<<dim3(unsigned(blocks)), threads, smem,
+                                                       stream>>>(
       (const T*)tau, (const T*)w0, (const T*)gt, (const T*)surf, (const T*)bpl,
       (const T*)u0s, (const T*)zw, nzen, (const T*)wbin, nG, rows, nz, hard, T(tau_min),
-      (T*)scratch, (T*)out_am, (T*)out_fup, (T*)out_fdn);
+      (T*)scratch, (T*)out_am, (T*)out_fup, (T*)out_fdn, (T*)out_srad);
   return int(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch(int solar, int with_amean, const void* tau, const void* w0, const void* gt,
-             const void* surf, const void* bpl, const void* u0s, const void* zw, int nzen,
-             const void* wbin, int nG, long long rows, int nz, int hard, double tau_min,
-             void* scratch, void* out_am, void* out_fup, void* out_fdn, cudaStream_t s) {
-  if (!solar)
-    return launch<T, false, false, 1>(tau, w0, gt, surf, bpl, u0s, zw, 1, wbin, nG, rows,
-                                      nz, hard, tau_min, scratch, out_am, out_fup, out_fdn, s);
+int dispatch_weighted(int solar, int with_amean, const void* tau, const void* w0,
+                      const void* gt, const void* surf, const void* bpl, const void* u0s,
+                      const void* zw, int nzen, const void* wbin, int nG, long long rows,
+                      int nz, int hard, double tau_min, void* scratch, void* out_am,
+                      void* out_fup, void* out_fdn, cudaStream_t s) {
+#define CLIMA_ARGS tau, w0, gt, surf, bpl, u0s, zw, nzen, wbin, nG, rows, nz, hard, tau_min, \
+                   scratch, out_am, out_fup, out_fdn, nullptr, s
+  if (!solar) return launch<T, false, false, 1, true, false>(CLIMA_ARGS);
   if (nzen <= 4) {
-    if (with_amean)
-      return launch<T, true, true, 4>(tau, w0, gt, surf, bpl, u0s, zw, nzen, wbin, nG, rows,
-                                      nz, hard, tau_min, scratch, out_am, out_fup, out_fdn, s);
-    return launch<T, true, false, 4>(tau, w0, gt, surf, bpl, u0s, zw, nzen, wbin, nG, rows,
-                                     nz, hard, tau_min, scratch, out_am, out_fup, out_fdn, s);
+    if (with_amean) return launch<T, true, true, 4, true, false>(CLIMA_ARGS);
+    return launch<T, true, false, 4, true, false>(CLIMA_ARGS);
   }
-  if (with_amean)
-    return launch<T, true, true, 8>(tau, w0, gt, surf, bpl, u0s, zw, nzen, wbin, nG, rows,
-                                    nz, hard, tau_min, scratch, out_am, out_fup, out_fdn, s);
-  return launch<T, true, false, 8>(tau, w0, gt, surf, bpl, u0s, zw, nzen, wbin, nG, rows,
-                                   nz, hard, tau_min, scratch, out_am, out_fup, out_fdn, s);
+  if (with_amean) return launch<T, true, true, 8, true, false>(CLIMA_ARGS);
+  return launch<T, true, false, 8, true, false>(CLIMA_ARGS);
+#undef CLIMA_ARGS
+}
+
+template <typename T>
+int dispatch_rows(int solar, int u0_per_row, const void* tau, const void* w0, const void* gt,
+                  const void* surf, const void* bpl, const void* u0, int nzen, long long rows,
+                  int nz, int hard, double tau_min, void* scratch, void* out_am, void* out_fup,
+                  void* out_fdn, void* out_srad, cudaStream_t s) {
+#define CLIMA_ARGS tau, w0, gt, surf, bpl, u0, nullptr, nzen, nullptr, 1, rows, nz, hard, \
+                   tau_min, scratch, out_am, out_fup, out_fdn, out_srad, s
+  if (!solar) return launch<T, false, false, 1, false, false>(CLIMA_ARGS);
+  if (u0_per_row) return launch<T, true, true, 1, false, true>(CLIMA_ARGS);
+  if (nzen <= 4) return launch<T, true, true, 4, false, false>(CLIMA_ARGS);
+  return launch<T, true, true, 8, false, false>(CLIMA_ARGS);
+#undef CLIMA_ARGS
 }
 
 }  // namespace
 
-// Plain C entry point. Pointers are device pointers; arrays are contiguous:
+// Plain C entry points. Pointers are device pointers; arrays are contiguous:
 // tau/w0/gt (rows, nz), surf (rows,) emissivity (IR) or albedo (solar),
-// bpl (rows, nz+1) (IR only), u0s/zw (nzen,) (solar only), wbin (nG,),
-// scratch (nz, 2 + 2*nrhs, rows) with nrhs = 4 if nzen <= 4 else 8 (solar) or
-// 1 (IR), outputs (rows/nG, nz+1). Requires rows % nG == 0, 1 <= nG <= 1024,
-// nz >= 1, 1 <= nzen <= 8. Returns the launch's cudaError_t.
+// bpl (rows, nz+1) (IR only). Each returns the launch's cudaError_t.
+
+// Weighted: u0s/zw (nzen,) (solar only), wbin (nG,), scratch
+// (nz, 2 + 2*nrhs, rows) with nrhs = 4 if nzen <= 4 else 8 (solar) or 1 (IR),
+// outputs (rows/nG, nz+1). Requires rows % nG == 0, 1 <= nG <= 1024, nz >= 1,
+// 1 <= nzen <= 8.
 extern "C" int clima_twostream_weighted(int is_f64, int solar, int with_amean,
                                         const void* tau, const void* w0, const void* gt,
                                         const void* surf, const void* bpl, const void* u0s,
@@ -380,8 +455,29 @@ extern "C" int clima_twostream_weighted(int is_f64, int solar, int with_amean,
                                         void* out_fdn, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (is_f64)
-    return dispatch<double>(solar, with_amean, tau, w0, gt, surf, bpl, u0s, zw, nzen, wbin,
-                            nG, rows, nz, hard, tau_min, scratch, out_am, out_fup, out_fdn, s);
-  return dispatch<float>(solar, with_amean, tau, w0, gt, surf, bpl, u0s, zw, nzen, wbin, nG,
-                         rows, nz, hard, tau_min, scratch, out_am, out_fup, out_fdn, s);
+    return dispatch_weighted<double>(solar, with_amean, tau, w0, gt, surf, bpl, u0s, zw, nzen,
+                                     wbin, nG, rows, nz, hard, tau_min, scratch, out_am,
+                                     out_fup, out_fdn, s);
+  return dispatch_weighted<float>(solar, with_amean, tau, w0, gt, surf, bpl, u0s, zw, nzen,
+                                  wbin, nG, rows, nz, hard, tau_min, scratch, out_am, out_fup,
+                                  out_fdn, s);
+}
+
+// Unreduced: u0 (nzen,) shared, or (rows,) with u0_per_row (then nzen = 1);
+// scratch (nz, 2 + 2*nrhs, rows) with nrhs = 1 (IR, per-row u0), 4 (nzen <= 4)
+// or 8; outputs amean/fup/fdn (nzen, rows, nz+1) and srad (nzen, rows) for
+// solar, fup/fdn (rows, nz+1) for IR (out_am and out_srad unused).
+// Requires nz >= 1 and 1 <= nzen <= 8.
+extern "C" int clima_twostream_rows(int is_f64, int solar, int u0_per_row, const void* tau,
+                                    const void* w0, const void* gt, const void* surf,
+                                    const void* bpl, const void* u0, int nzen, long long rows,
+                                    int nz, int hard, double tau_min, void* scratch,
+                                    void* out_am, void* out_fup, void* out_fdn,
+                                    void* out_srad, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_f64)
+    return dispatch_rows<double>(solar, u0_per_row, tau, w0, gt, surf, bpl, u0, nzen, rows, nz,
+                                 hard, tau_min, scratch, out_am, out_fup, out_fdn, out_srad, s);
+  return dispatch_rows<float>(solar, u0_per_row, tau, w0, gt, surf, bpl, u0, nzen, rows, nz,
+                              hard, tau_min, scratch, out_am, out_fup, out_fdn, out_srad, s);
 }

@@ -25,17 +25,22 @@ _BUILD = os.path.join(_PKG, "_build")
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_LOCK = threading.Lock()
+_LOCK = threading.Lock()  # guards _LOCKS
+_LOCKS = {}  # library name -> its build lock, so different libraries build in parallel
 _LIBS = {}
 # name -> {"seconds": build time (0.0 when reused), "log": nvcc's output}
 BUILD_INFO = {}
 
 _P, _I, _LL, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
+# library -> {C entry point: argtypes}
 _SIGNATURES = {
-    "twostream": ("clima_twostream_weighted",
-                  [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _LL, _I, _I, _D,
-                   _P, _P, _P, _P, _P]),
-    "rorr": ("clima_rorr_chain", [_I, _I, _I, _LL, _P, _P, _P, _P, _P]),
+    "twostream": {
+        "clima_twostream_weighted": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _LL,
+                                     _I, _I, _D, _P, _P, _P, _P, _P],
+        "clima_twostream_rows": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _D,
+                                 _P, _P, _P, _P, _P, _P],
+    },
+    "rorr": {"clima_rorr_chain": [_I, _I, _I, _LL, _P, _P, _P, _P, _P]},
 }
 
 
@@ -48,9 +53,12 @@ def _nvcc():
 
 
 def load_library(name):
-    """The ctypes function of kernel library ``name`` ("twostream" or "rorr"),
-    building ``csrc/<name>.cu`` first if needed."""
+    """The ctypes entry points of kernel library ``name`` ("twostream" or
+    "rorr") as a dict {C function name: function}, building ``csrc/<name>.cu``
+    first if needed. Different libraries may build concurrently."""
     with _LOCK:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
         if name in _LIBS:
             return _LIBS[name]
         src = os.path.join(_CSRC, name + ".cu")
@@ -69,9 +77,12 @@ def load_library(name):
                 raise RuntimeError(f"nvcc failed on {src}:\n{log}")
             os.replace(tmp, out)
         BUILD_INFO[name] = {"seconds": time.perf_counter() - t0, "log": log}
-        fname, argtypes = _SIGNATURES[name]
-        fn = getattr(ctypes.CDLL(out), fname)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _LIBS[name] = fn
-        return fn
+        lib = ctypes.CDLL(out)
+        fns = {}
+        for fname, argtypes in _SIGNATURES[name].items():
+            fn = getattr(lib, fname)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            fns[fname] = fn
+        _LIBS[name] = fns
+        return fns

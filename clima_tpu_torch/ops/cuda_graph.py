@@ -1,0 +1,58 @@
+"""Replaying one step of a column march as a CUDA graph.
+
+The moist-adiabat march is a sequential loop of small tensor operations over
+a batch of columns: about 4700 per substep, 28000 per interval of the
+profile grid, some 2.8 million per nz=50 profile. Run eagerly on the card,
+each operation is a kernel launch paid on the host, so a profile is bound by
+launch latency. :func:`graphed` captures one step of such a loop (one
+interval) into a CUDA graph once and replays it for the other steps, so the
+host launches one graph per interval instead of every kernel. This is the
+counterpart of the ``jax.jit`` the JAX package puts around the same code; the
+march has no TPU kernel, and a hand-written march kernel is later work.
+
+Capture needs a step free of host synchronisation, which the march is (no
+``.item()``, no branch on values). A failed capture raises; nothing falls
+back to eager execution.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+__all__ = ["graphed", "CAPTURE_SECONDS"]
+
+# function name -> seconds spent capturing graphs of it (warm-up run included)
+CAPTURE_SECONDS = {}
+
+
+def graphed(fn, *inputs):
+    """Capture ``fn(*inputs)`` (CUDA tensors in, a tuple of CUDA tensors out).
+
+    Returns (replay, first): ``first`` is fn's result on ``inputs`` (from the
+    warm-up run that precedes capture); ``replay(*args)`` copies ``args``
+    into the captured input buffers, replays the graph and returns the
+    captured output buffers, which the next replay overwrites. Tensors that
+    ``fn`` closes over must stay alive as long as ``replay``.
+    """
+    t0 = time.perf_counter()
+    static = [x.clone() for x in inputs]
+    side = torch.cuda.Stream(device=static[0].device)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        first = tuple(t.clone() for t in fn(*static))
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outputs = fn(*static)
+    name = getattr(fn, "func", fn).__name__  # a functools.partial names its function
+    CAPTURE_SECONDS[name] = CAPTURE_SECONDS.get(name, 0.0) + time.perf_counter() - t0
+
+    def replay(*args):
+        for buf, a in zip(static, args):
+            buf.copy_(a)
+        graph.replay()
+        return outputs
+
+    return replay, first

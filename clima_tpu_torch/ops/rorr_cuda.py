@@ -87,7 +87,7 @@ def k_rorr_mix_cuda(tau_ks_t, wbin, wbin_e):
     wxy = make_wxy(wbin).to(device=device, dtype=dtype).contiguous()
     edges = wbin_e.to(device=device, dtype=dtype).contiguous()
     out = torch.empty((nbin, R), dtype=dtype, device=device)
-    fn = load_library("rorr")
+    fn = load_library("rorr")["clima_rorr_chain"]
     status = fn(int(dtype == torch.float64), nbin, nk, R, tau_ks_t.data_ptr(),
                 wxy.data_ptr(), edges.data_ptr(), out.data_ptr(),
                 torch.cuda.current_stream(device).cuda_stream)

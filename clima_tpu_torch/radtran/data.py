@@ -41,6 +41,7 @@ import torch
 from ..ops.rebin import addpnt, inter2, interp_discrete_to_bins
 from ..physics.eqns import rayleigh_vardavas, weights_to_bins
 from .. import constants as const
+from ..utils.device import resolve_device
 from ..utils.errors import ClimaException
 
 __all__ = [
@@ -360,11 +361,12 @@ def read_stellar_flux(star, wavl: np.ndarray) -> np.ndarray:
 
 
 def load_optical_data(datadir, species_names, particle_names, sop,
-                      device="cpu", dtype=torch.float64) -> OpticalData:
+                      device=None, dtype=torch.float64) -> OpticalData:
     """Load and regrid every opacity source named by ``sop``.
 
     ``datadir`` is a path or an in-memory mapping (see :class:`DataDir`).
-    Returns tables on ``device`` in ``dtype``.
+    Returns tables on ``device`` in ``dtype``; ``device`` None means the CUDA
+    card (raises without one).
     """
     dd = datadir if isinstance(datadir, DataDir) else DataDir(datadir)
     species_names = list(species_names)
@@ -583,13 +585,13 @@ def _convert(obj, device, dtype):
     return obj
 
 
-def optical_data_to(op, device="cpu", dtype=torch.float64) -> OpticalData:
+def optical_data_to(op, device=None, dtype=torch.float64) -> OpticalData:
     """Copy of ``op`` (any OpticalData with numpy or tensor arrays) whose
-    array fields are tensors on ``device`` in ``dtype``."""
-    return _convert(op, torch.device(device), dtype)
+    array fields are tensors on ``device`` (None: the CUDA card) in ``dtype``."""
+    return _convert(op, resolve_device(device), dtype)
 
 
-def optical_data_from_numpy(op, ir, sol, device="cpu", dtype=torch.float64):
+def optical_data_from_numpy(op, ir, sol, device=None, dtype=torch.float64):
     """The port's (OpticalData, ir ChannelInfo, solar ChannelInfo) from tables
     loaded elsewhere as numpy dataclasses with the same field names (such as
     the JAX package's loaders), so that both packages compute on identical

@@ -73,21 +73,18 @@ def _interp_particle(part, radii_z):
 def _rorr_mix(tau_ks_t, wbin, wbin_e):
     """RORR mix of the species chain (nk, nbin, R) -> (nbin, R).
 
-    nbin <= 16 goes through the rank kernel (:func:`k_rorr_mix_cuda`, its
-    plain twin for CPU tensors). Past nbin=16 the rank form's O(nbin^4) cost
-    per species pair loses to the sort path (measured on the TPU by the JAX
-    package, PARITY.md), which runs here on the CPU, with a warning; the port
-    has no sort kernel for the card yet, so CUDA tensors raise.
+    nbin alone picks the path, on every device, as in the JAX package
+    (``clima_tpu/radtran/opacity.py:185-206``): nbin <= 16 goes through the
+    rank kernel (:func:`k_rorr_mix_cuda`; its plain twin for CPU tensors);
+    past nbin=16 the rank form's O(nbin^4) cost per species pair loses to the
+    sort path (PARITY.md), so the sort path :func:`k_rorr_mix` runs on the
+    tensors' own device, with the reference's warning.
     """
     nk, nbin, _ = tau_ks_t.shape
     if nk == 1:
         return tau_ks_t[0]
     if nbin <= 16:
         return k_rorr_mix_cuda(tau_ks_t, wbin, wbin_e)
-    if tau_ks_t.device.type != "cpu":
-        raise NotImplementedError(
-            f"RORR with nbin={nbin} > 16 on {tau_ks_t.device}: the rank kernel takes "
-            "nbin <= 16 and the sort-based path has no kernel for this device yet")
     warnings.warn(
         f"RORR with nbin={nbin} > 16: using the sort-based k-mixing path, not the "
         "rank kernel (O(nbin^4) per pair and slower past nbin=16; see PARITY.md).",

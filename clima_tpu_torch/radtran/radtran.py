@@ -19,6 +19,7 @@ import torch
 
 from ..config import load_settings
 from ..physics import eqns
+from ..utils.device import resolve_device
 from ..utils.errors import ClimaException
 from . import data as data_mod
 from .opacity import compute_opacity as _compute_opacity  # radiate() has an argument of that name
@@ -59,18 +60,19 @@ class Radtran:
 
     def __init__(self, species_names, particle_names, settings, star_f,
                  num_zenith_angles, surface_albedo, nz, datadir,
-                 device="cpu", dtype=torch.float64):
+                 device=None, dtype=torch.float64):
         """Equivalent of create_Radtran_2 (clima_radtran.f90:128-219).
 
         ``settings`` may be a ClimaSettings object or a settings.yaml path;
         ``star_f`` a star file path or its (n, 2) table; ``datadir`` a path
-        or an in-memory data tree (:class:`.data.DataDir`).
+        or an in-memory data tree (:class:`.data.DataDir`). ``device`` None
+        means the CUDA card (raises without one); pass "cpu" for the CPU.
         """
         s = load_settings(settings) if isinstance(settings, str) else settings
 
         if nz < 1:
             raise ClimaException('"nz" can not be less than 1.')
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.dtype = dtype
         self.ng = len(species_names)
         self.species_names = list(species_names)
@@ -110,7 +112,7 @@ class Radtran:
 
     @classmethod
     def from_settings(cls, settings_f, star_f, num_zenith_angles, surface_albedo, nz,
-                      datadir, device="cpu", dtype=torch.float64):
+                      datadir, device=None, dtype=torch.float64):
         """Equivalent of create_Radtran_1 (clima_radtran.f90:98-126).
 
         ``settings_f`` is a settings.yaml path or a ClimaSettings object."""

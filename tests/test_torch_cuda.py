@@ -1,5 +1,5 @@
 """The port's CUDA kernels against their plain twins on the card (float64,
-small shapes). Skipped where no CUDA device is present; on a GPU machine:
+small shapes), the nbin > 16 RORR routing and AdiabatClimate on the card. Skipped where no CUDA device is present; on a GPU machine:
 ``python -m pytest --noconftest tests/test_torch_cuda.py -m cuda`` (the
 suite's conftest configures JAX, which a GPU machine need not have)."""
 
@@ -7,6 +7,8 @@ import numpy as np
 import pytest
 import torch
 
+from clima_tpu_torch.adiabat import AdiabatClimate
+from clima_tpu_torch.data import make_template
 from clima_tpu_torch.ops import rorr, rorr_cuda, twostream, twostream_cuda
 from clima_tpu_torch.radtran.opacity import _rorr_mix
 
@@ -77,8 +79,67 @@ def test_rorr_kernel_matches_twin(dev, nbin):
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-9)
 
 
-def test_rorr_past_nbin_16_raises_on_the_card(dev):
-    tks = torch.ones((3, 20, 5), dtype=torch.float64, device=dev)
-    wbin = torch.full((20,), 0.05, dtype=torch.float64, device=dev)
-    with pytest.raises(NotImplementedError):
-        _rorr_mix(tks, wbin, torch.cat([wbin.new_zeros(1), torch.cumsum(wbin, 0)]))
+def test_rorr_past_nbin_16_runs_on_the_card(dev):
+    """nbin > 16 takes the sort path on the card's own tensors, with the
+    reference's warning, and matches the CPU result."""
+    rng = np.random.default_rng(9)
+    nbin = 20
+    tks = 10 ** rng.uniform(-6, 1, (3, nbin, 77))
+    w = rng.uniform(0.5, 1.5, nbin)
+    wbin = w / w.sum()
+    wbin_e = np.concatenate([[0.0], np.cumsum(wbin)])
+    with pytest.warns(UserWarning, match="nbin=20 > 16"):
+        got = _rorr_mix(*(torch.tensor(x, device=dev) for x in (tks, wbin, wbin_e)))
+    assert got.device == dev
+    with pytest.warns(UserWarning, match="nbin=20 > 16"):
+        want = _rorr_mix(*(torch.tensor(x) for x in (tks, wbin, wbin_e)))
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-12)
+
+
+@pytest.mark.parametrize("hard", [True, False])
+def test_ir_auto_kernel_matches_twin(dev, hard):
+    rows, nz = 300, 29
+    tau, w0, gt = _atm(rows, nz, dev, 11)
+    rng = np.random.default_rng(12)
+    t = lambda x: torch.tensor(x, device=dev)
+    args = (tau, w0, gt, t(rng.uniform(0.8, 1.0, rows)), hard, 1e-6,
+            t(rng.uniform(1e-2, 1.0, (rows, nz + 1))))
+    n = twostream_cuda.two_stream_ir_auto.launches
+    _close(twostream_cuda.two_stream_ir_auto(*args), twostream.two_stream_ir(*args))
+    assert twostream_cuda.two_stream_ir_auto.launches == n + 1
+
+
+@pytest.mark.parametrize("nzen", [1, 4, 7])
+def test_solar_multi_auto_kernel_matches_twin(dev, nzen):
+    rows, nz = 300, 31
+    tau, w0, gt = _atm(rows, nz, dev, 13)
+    rng = np.random.default_rng(14)
+    t = lambda x: torch.tensor(x, device=dev)
+    args = (tau, w0, gt, t(rng.uniform(0.2, 1.0, nzen)), t(rng.uniform(0.0, 0.6, rows)))
+    _close(twostream_cuda.two_stream_solar_multi_auto(*args), twostream.two_stream_solar_multi(*args))
+
+
+def test_solar_auto_kernel_matches_twin(dev):
+    """One zenith cosine per row."""
+    rows, nz = 300, 37
+    tau, w0, gt = _atm(rows, nz, dev, 15)
+    rng = np.random.default_rng(16)
+    t = lambda x: torch.tensor(x, device=dev)
+    args = (tau, w0, gt, t(rng.uniform(0.2, 1.0, rows)), t(rng.uniform(0.0, 0.6, rows)))
+    _close(twostream_cuda.two_stream_solar_auto(*args), twostream.two_stream_solar(*args))
+
+
+def test_adiabat_climate_on_the_card_matches_the_cpu(dev):
+    """AdiabatClimate on the card (graph-replayed march, kernels) against the port
+    on the CPU: TOA fluxes and the profile state, nz=12."""
+    tpl = make_template(nz=12, n_zenith=2)
+    files = (tpl["species"], tpl["settings"], tpl["star"], tpl["datadir"])
+    gpu, cpu = AdiabatClimate(*files, substeps=2), AdiabatClimate(*files, substeps=2, device="cpu")
+    assert gpu.device.type == "cuda"
+    P_i = np.full(gpu.sp.ng, 1e-15)
+    P_i[gpu.species_names.index("H2O")] = 270e6
+    P_i[gpu.species_names.index("CO2")] = 400.0
+    P_i[gpu.species_names.index("N2")] = 1e6
+    np.testing.assert_allclose(gpu.TOA_fluxes(285.0, P_i), cpu.TOA_fluxes(285.0, P_i), rtol=1e-9)
+    for k in ("P", "T", "z", "f_i", "N_atmos"):
+        np.testing.assert_allclose(getattr(gpu, k), getattr(cpu, k), rtol=1e-10, err_msg=k)

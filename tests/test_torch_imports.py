@@ -1,4 +1,4 @@
-"""The PyTorch port never imports JAX."""
+"""The PyTorch port never imports JAX, nor anything of the JAX package."""
 
 import os
 import subprocess
@@ -24,18 +24,31 @@ MODULES = [
     "clima_tpu_torch.radtran.opacity",
     "clima_tpu_torch.radtran.radiate",
     "clima_tpu_torch.radtran.radtran",
+    "clima_tpu_torch.utils.device",
+    "clima_tpu_torch.ops.cuda_graph",
+    "clima_tpu_torch.physics.saturation",
+    "clima_tpu_torch.solvers.newton",
+    "clima_tpu_torch.adiabat",
+    "clima_tpu_torch.adiabat.profile",
+    "clima_tpu_torch.adiabat.altitude",
+    "clima_tpu_torch.adiabat.profile_dry",
+    "clima_tpu_torch.adiabat.adiabat",
+    "clima_tpu_torch.parallel",
+    "clima_tpu_torch.parallel.pipeline",
+    "chip_smoke",
 ]
 
 
 def test_port_imports_without_jax():
-    """Every module on the slice imports with JAX made unimportable, and no
-    JAX module is loaded afterwards."""
+    """Every module of the port imports with JAX made unimportable, and no JAX
+    module and no module of clima_tpu is loaded afterwards."""
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
         f"for m in {MODULES!r}:\n"
         "    importlib.import_module(m)\n"
-        "loaded = [m for m in sys.modules if m.startswith(('jax.', 'jaxlib'))]\n"
+        "loaded = [m for m in sys.modules if m.startswith(('jax.', 'jaxlib', 'clima_tpu.'))\n"
+        "          or m == 'clima_tpu']\n"
         "assert sys.modules['jax'] is None and not loaded, loaded\n"
         "print('ok')\n"
     )

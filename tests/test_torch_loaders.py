@@ -97,7 +97,7 @@ def test_optical_data_channels_and_star_match_reference(template, monkeypatch):
     ref_s, s = _settings(template)
     gases, parts = _names(template)
     ref_op = ref_data.load_optical_data(template["datadir"], gases, parts, ref_s.op)
-    op = data.load_optical_data(template["datadir"], gases, parts, s.op)
+    op = data.load_optical_data(template["datadir"], gases, parts, s.op, device="cpu")
     assert op.part and op.cont is not None and op.cia and op.pxs and op.ray
     assert_same(op, ref_op)
     assert op.opacities2yaml() == ref_op.opacities2yaml()
@@ -158,8 +158,9 @@ def test_in_memory_template_equals_files(template, tmp_path):
                     np.testing.assert_array_equal(f[k][()], v, err_msg=rel)
 
     gases, parts = _names(template)
-    op_mem = data.load_optical_data(mem["datadir"], gases, parts, mem["settings"].op)
-    op_file = data.load_optical_data(root, gases, parts, mem["settings"].op)
+    op_mem = data.load_optical_data(mem["datadir"], gases, parts, mem["settings"].op,
+                                    device="cpu")
+    op_file = data.load_optical_data(root, gases, parts, mem["settings"].op, device="cpu")
     assert_same(op_mem, op_file)
     assert_same(data.load_channel(mem["datadir"], "ir", None, op_mem),
                 data.load_channel(root, "ir", None, op_file))

@@ -124,7 +124,7 @@ def _assert_same_results(got, ref, rtol=1e-10):
 def test_radtran_matches_reference(template):
     gases = ref_load_species(template["species"]).gas_names
     args = (gases, [], template["settings"], template["star"], 2, 0.25, NZ, template["datadir"])
-    ref, got = RefRadtran(*args), Radtran(*args)
+    ref, got = RefRadtran(*args), Radtran(*args, device="cpu")
     col = column(gases)
     np.testing.assert_allclose(got.TOA_fluxes(290.0, *col), ref.TOA_fluxes(290.0, *col),
                                rtol=1e-10)
@@ -144,8 +144,9 @@ def test_radtran_matches_reference(template):
         got.TOA_fluxes(285.0, *col, compute_solar=False, compute_opacity=False)[1],
         ref.TOA_fluxes(285.0, *col, compute_solar=False, compute_opacity=False)[1], rtol=1e-10)
     mem = make_template(nz=NZ, n_zenith=2)
-    in_mem = Radtran(gases, [], mem["settings"], mem["star"], 2, 0.25, NZ, mem["datadir"])
-    assert in_mem.TOA_fluxes(290.0, *col) == Radtran(*args).TOA_fluxes(290.0, *col)
+    in_mem = Radtran(gases, [], mem["settings"], mem["star"], 2, 0.25, NZ, mem["datadir"],
+                     device="cpu")
+    assert in_mem.TOA_fluxes(290.0, *col) == Radtran(*args, device="cpu").TOA_fluxes(290.0, *col)
 
     with pytest.raises(ClimaException):
         got.TOA_fluxes(290.0, col[0][:-1], *col[1:])
@@ -154,7 +155,7 @@ def test_radtran_matches_reference(template):
 def test_from_settings_with_particles_matches_reference(template):
     kw = dict(num_zenith_angles=2, surface_albedo=0.15, nz=NZ, datadir=template["datadir"])
     ref = RefRadtran.from_settings(template["settings_me"], template["star"], **kw)
-    got = Radtran.from_settings(template["settings_me"], template["star"], **kw)
+    got = Radtran.from_settings(template["settings_me"], template["star"], device="cpu", **kw)
     assert got.opacities2yaml() == ref.opacities2yaml()
     col = column(got.species_names)
     pden, radii = _particles()

@@ -4,6 +4,7 @@ mode (float64, rtol 1e-9), and the rank-form reference's tie handling,
 including the float32 near-tie chain."""
 
 import functools
+import warnings
 from unittest import mock
 
 import numpy as np
@@ -16,6 +17,7 @@ from clima_tpu.ops import rorr as ref_rorr
 from clima_tpu.ops.pallas_rorr import k_rorr_mix_pallas, mix_pair_rank_ref as ref_rank
 
 from clima_tpu_torch.ops import rorr, rorr_cuda
+from clima_tpu_torch.radtran import opacity
 from clima_tpu_torch.radtran.opacity import _rorr_mix
 
 
@@ -118,9 +120,10 @@ def test_wrapper_never_hands_accelerator_tensors_to_the_twin():
 
 
 def test_opacity_rorr_routing_past_nbin_16():
-    """compute_opacity's RORR step: past nbin=16 the sort path runs on the
-    CPU with a warning and matches the reference's XLA path; other devices
-    raise (no sort kernel yet); one species passes through unmixed."""
+    """compute_opacity's RORR step: past nbin=16 the sort path runs with a
+    warning and matches the reference's XLA path, on the tensors' own device
+    (the meta device here stands in for the card); one species passes through
+    unmixed."""
     rng = np.random.default_rng(6)
     nbin = 20
     tau_ks = 10 ** rng.uniform(-6, 1, (3, nbin, 13))
@@ -130,7 +133,33 @@ def test_opacity_rorr_routing_past_nbin_16():
     want = ref_rorr.k_rorr_mix(jnp.asarray(np.moveaxis(tau_ks, 1, -1)), jnp.asarray(wbin_e))
     np.testing.assert_allclose(got.numpy(), np.moveaxis(np.asarray(want), -1, 0), rtol=1e-12)
     meta = torch.empty((3, nbin, 13), dtype=torch.float64, device="meta")
-    with pytest.raises(NotImplementedError):
-        _rorr_mix(meta, torch.tensor(wbin), torch.tensor(wbin_e))
+    with pytest.warns(UserWarning, match="nbin=20 > 16"):
+        out = _rorr_mix(meta, torch.tensor(wbin, device="meta"),
+                        torch.tensor(wbin_e, device="meta"))
+    assert out.device.type == "meta" and out.shape == (nbin, 13)
     one = torch.tensor(tau_ks[:1])
     assert torch.equal(_rorr_mix(one, torch.tensor(wbin), torch.tensor(wbin_e)), one[0])
+
+
+def test_rorr_past_nbin_16_takes_the_sort_path():
+    """nbin alone routes: at nbin=20 the rank kernel's wrapper is never called
+    and the sort path gives the JAX package's XLA result; at nbin=16 the
+    wrapper is called."""
+    rng = np.random.default_rng(7)
+    wrapper = mock.Mock(side_effect=rorr_cuda.k_rorr_mix_cuda)
+    with mock.patch.object(opacity, "k_rorr_mix_cuda", wrapper), \
+            mock.patch.object(opacity, "k_rorr_mix", wraps=rorr.k_rorr_mix) as sort_path:
+        for nbin in (20, 16):
+            tau_ks = 10 ** rng.uniform(-6, 1, (2, nbin, 9))
+            wbin, wbin_e = _weights(rng, nbin)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                got = opacity._rorr_mix(torch.tensor(tau_ks), torch.tensor(wbin),
+                                        torch.tensor(wbin_e))
+            want = ref_rorr.k_rorr_mix(jnp.asarray(np.moveaxis(tau_ks, 1, -1)),
+                                       jnp.asarray(wbin_e))
+            np.testing.assert_allclose(got.numpy(), np.moveaxis(np.asarray(want), -1, 0),
+                                       rtol=1e-12)
+            if nbin == 20:
+                assert sort_path.call_count == 1 and wrapper.call_count == 0
+    assert wrapper.call_count == 1

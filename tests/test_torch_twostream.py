@@ -160,3 +160,60 @@ def test_wrappers_never_hand_accelerator_tensors_to_the_twin():
         tc.two_stream_solar_multi_weighted_cuda(meta(8, 5), meta(8, 5), meta(8, 5), meta(2),
                                                 meta(8), meta(2), meta(8))
     assert tc.two_stream_ir_weighted_cuda.launches == 0
+
+
+@pytest.mark.parametrize("hard", [True, False])
+def test_ir_auto_matches_pallas_kernel(interpret, hard):
+    """two_stream_ir_auto on the CPU against the unreduced IR Pallas kernel
+    (the JAX two_stream_ir_auto's TPU route), a thin layer included."""
+    B, nz = 24, 17
+    tau, w0, gt = _atm(B, nz, seed=12)
+    tau[4, 3] = 1e-7
+    rng = np.random.default_rng(13)
+    emis, bpl = rng.uniform(0.8, 1.0, B), rng.uniform(1e-2, 1.0, (B, nz + 1))
+    tt, jj = T(tau, w0, gt, emis, bpl), J(tau, w0, gt, emis, bpl)
+    kern = pts.two_stream_ir_pallas(*jj[:4], hard, 1e-6, jj[4], block_b=8)
+    got = tc.two_stream_ir_auto(*tt[:4], hard, 1e-6, tt[4])
+    assert got[0].shape == (B, nz + 1)
+    _close(got, kern, 1e-10, ATOL_KERNEL)
+    _close(got, ref_ts.two_stream_ir_auto(*jj[:4], hard, 1e-6, jj[4]), RTOL_TWIN, ATOL_TWIN)
+
+
+def test_solar_multi_auto_matches_pallas_kernel(interpret):
+    """two_stream_solar_multi_auto (amean, surface radiance, fup, fdn per
+    zenith) on the CPU against the unreduced multi-zenith Pallas kernel."""
+    B, nz, nzen = 16, 19, 4
+    tau, w0, gt = _atm(B, nz, seed=14)
+    tau[1, 2] = 1e-7
+    rng = np.random.default_rng(15)
+    u0s, rs = rng.uniform(0.2, 1.0, nzen), rng.uniform(0.0, 0.6, B)
+    kern = pts.two_stream_solar_multi_pallas(*J(tau, w0, gt, u0s, rs), block_b=8)
+    got = tc.two_stream_solar_multi_auto(*T(tau, w0, gt, u0s, rs))
+    assert got[1].shape == (nzen, B) and got[2].shape == (nzen, B, nz + 1)
+    _close(got, kern, 1e-10, ATOL_KERNEL)
+
+
+def test_solar_auto_matches_pallas_kernel(interpret):
+    """two_stream_solar_auto with one zenith cosine per row on the CPU against
+    the single-zenith Pallas kernel, surface radiance included."""
+    B, nz = 16, 23
+    tau, w0, gt = _atm(B, nz, seed=16)
+    rng = np.random.default_rng(17)
+    u0, rs = rng.uniform(0.2, 1.0, B), rng.uniform(0.0, 0.6, B)
+    kern = pts.two_stream_solar_pallas(*J(tau, w0, gt, u0, rs), block_b=8)
+    got = tc.two_stream_solar_auto(*T(tau, w0, gt, u0, rs))
+    assert got[1].shape == (B,) and got[3].shape == (B, nz + 1)
+    _close(got, kern, 1e-10, ATOL_KERNEL)
+
+
+def test_auto_dispatchers_never_hand_accelerator_tensors_to_the_twin():
+    meta = lambda *shape: torch.empty(shape, dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError):
+        tc.two_stream_ir_auto(meta(8, 5), meta(8, 5), meta(8, 5), meta(8), True, 1e-6,
+                              meta(8, 6))
+    with pytest.raises(ValueError):
+        tc.two_stream_solar_multi_auto(meta(8, 5), meta(8, 5), meta(8, 5), meta(2), meta(8))
+    with pytest.raises(ValueError):
+        tc.two_stream_solar_auto(meta(8, 5), meta(8, 5), meta(8, 5), meta(8), meta(8))
+    assert (tc.two_stream_ir_auto.launches, tc.two_stream_solar_multi_auto.launches,
+            tc.two_stream_solar_auto.launches) == (0, 0, 0)
