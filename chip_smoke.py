@@ -7,14 +7,16 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
 1. environment: torch / CUDA versions and the card's name and power limit;
    fails without a CUDA device (there is no CPU path);
 2. build: the CUDA kernels from clima_tpu_torch/csrc/, one nvcc per source,
-   started together, with build seconds;
+   started together, with build seconds and ptxas's registers, stack and
+   spills for each kernel instance; fails if an RORR instance spills;
 3. each kernel against its plain PyTorch twin on the card, float64:
    a. the weight-fused kernels of the radtran path at the flagship shapes
       (IR two-stream with hard and soft surface and a thin layer; solar
       two-stream with 4 zenith angles, with and without amean; RORR with 3
-      species at nbin 8 and 16), at smaller shapes the solar kernel's 5-8
-      zenith build (6 angles) and RORR at a run-time nbin (12), plus the
-      float32 near-tie RORR chain;
+      species at nbin 8 and 16, both timed beside the sort twin, and at
+      nbin 8 in float32, timed and held to the float32 twin), at smaller
+      shapes the solar kernel's 5-8 zenith build (6 angles) and RORR at a
+      run-time nbin (12), plus the float32 near-tie RORR chain;
    b. the unreduced kernels through their dispatchers
       ``two_stream_{ir,solar_multi,solar}_auto`` at the shapes of the JAX
       package's roofline entry point (scripts/roofline.py: rows = 256*60*8,
@@ -29,7 +31,8 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    the B=256 columns x K=4 bench-shaped batch (nz_r = 202 layers, 51 bins,
    8 gauss points, 3 k-species) through compute_opacity -> radiate_ir /
    radiate_solar -> integrate_fluxes, checked against the same calls with
-   the three kernels swapped for their plain twins (ISR/OLR rtol 1e-9);
+   the three kernels swapped for their plain twins (ISR/OLR rtol 1e-9),
+   and one batch under torch.profiler for its device time by kernel;
 5. the adiabat path, the ``__graft_entry__.entry`` workload: the nz=50,
    4-zenith template, ``AdiabatClimate`` on the card and
    ``make_column_fns(c)["toa_fluxes"]`` over B=8 columns (moist adiabat ->
@@ -54,6 +57,7 @@ import contextlib
 import json
 import multiprocessing
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -227,12 +231,22 @@ def phase_build():
     if errors:
         raise errors[0]
     print(f"  built in {time.perf_counter() - t0:.2f} s wall")
+    spills = []
     for name in names:
         info = cuda_build.BUILD_INFO[name]
         print(f"  {name}: {info['seconds']:.2f} s")
+        fn = None
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                print("   ", line.strip())
+            if "Function properties for" in line:
+                fn = line.split("Function properties for", 1)[1].strip()
+                print("   ", fn)
+            elif "registers" in line or "spill" in line:
+                print("     ", line.strip())
+                stores = re.search(r"(\d+) bytes spill stores", line)
+                if name == "rorr" and stores and int(stores.group(1)) > 0:
+                    spills.append(fn)
+    if spills:
+        raise AssertionError(f"RORR instances spill to local memory: {sorted(set(spills))}")
 
 
 def _atm(gen, rows, nz, device):
@@ -308,36 +322,48 @@ def phase_kernels(device, B=B_COLS, nz=NZ_R, nw_ir=28, nw_sol=32, nw=51, nG=8,
         sync(device)
     del tau, w0, gt, sol_args
 
-    # RORR: nk=3, R = B*nw*nz lanes (all 51 master bins)
+    # RORR: nk=3, R = B*nw*nz lanes (all 51 master bins), float64 at nbin 8
+    # and 16, float32 at nbin 8; the sort twin runs in chunks of lanes, which
+    # bounds its memory at nbin 16
     R = B * nw * nz
     for nbin in nbin_list:
         w = 0.5 + rand(nbin)
         wb = w / w.sum()
         wb_e = torch.cat([torch.zeros(1, dtype=torch.float64, device=device), torch.cumsum(wb, 0)])
         tks = 10.0 ** (-6.0 + 7.0 * rand(3, nbin, R))
-        got = rorr_cuda.k_rorr_mix_cuda(tks, wb, wb_e)
-        chunk = (1 << 22) // (nbin * nbin)  # bounds the sort twin's memory
-        want = torch.cat([k_rorr_mix(tks[:, :, i:i + chunk].movedim(1, -1), wb_e).movedim(-1, 0)
-                          for i in range(0, R, chunk)], dim=1)
-        compare("k_rorr_mix", [got], [want], atol=0.0)
+        chunk = (1 << 25) // (nbin * nbin)
+        twin = lambda x, we: torch.cat([k_rorr_mix(x[:, :, i:i + chunk].movedim(1, -1), we)
+                                        .movedim(-1, 0) for i in range(0, R, chunk)], dim=1)
+        compare("k_rorr_mix", [rorr_cuda.k_rorr_mix_cuda(tks, wb, wb_e)], [twin(tks, wb_e)],
+                atol=0.0)
         sync(device)
+        t_kernel = event_ms(lambda: rorr_cuda.k_rorr_mix_cuda(tks, wb, wb_e), device, reps)
+        t_twin = event_ms(lambda: twin(tks, wb_e), device, 1)
+        # the function's own work: per lane and species pair, nbin^2 key
+        # sums, a sort of the nbin^2 keys (n log2 n compares), the weight
+        # prefix sum and the overlap rebin (~2 operations per key)
+        npair = nbin * nbin
+        nbytes = F64 * (3 * nbin * R + nbin * R + 2 * nbin + 1)
+        ops = 2 * R * npair * (1 + np.log2(npair) + 1 + 2)
+        bound = max(nbytes / HBM_BYTES_PER_S, ops / FP64_OPS_PER_S) * 1e3
         if nbin == 8:
             r = RESULTS["k_rorr_mix"]
-            r["ms"] = event_ms(lambda: rorr_cuda.k_rorr_mix_cuda(tks, wb, wb_e), device, reps)
-            r["plain_ms"] = event_ms(
-                lambda: k_rorr_mix(tks.movedim(1, -1), wb_e).movedim(-1, 0), device, 2)
-            # the function's own work: per lane and species pair, nbin^2 key
-            # sums, a sort of the nbin^2 keys (n log2 n compares), the weight
-            # prefix sum and the overlap rebin (~2 operations per key)
-            npair = nbin * nbin
-            set_bound("k_rorr_mix", F64 * (3 * nbin * R + nbin * R + 2 * nbin + 1),
-                      2 * R * npair * (1 + np.log2(npair) + 1 + 2))
-            print(f"  RORR nbin=8 R={R}: kernel {r['ms']:.3f} ms, twin {r['plain_ms']:.3f} ms, "
-                  f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
-        else:
-            t16 = event_ms(lambda: rorr_cuda.k_rorr_mix_cuda(tks, wb, wb_e), device, reps=2)
-            print(f"  RORR nbin={nbin} R={R}: kernel {t16:.3f} ms")
-        del tks, got, want
+            r["ms"], r["plain_ms"] = t_kernel, t_twin
+            set_bound("k_rorr_mix", nbytes, ops)
+        print(f"  RORR nbin={nbin} R={R} float64: kernel {t_kernel:.3f} ms, sort twin "
+              f"{t_twin:.3f} ms, bound {bound:.3f} ms")
+        if nbin == 8:
+            x, wb32, wb_e32 = tks.float(), wb.float(), wb_e.float()
+            got, want = rorr_cuda.k_rorr_mix_cuda(x, wb32, wb_e32).double(), twin(x, wb_e32).double()
+            maxrel = float((got - want).abs().max() / want.abs().max())
+            if not (bool(torch.isfinite(got).all()) and maxrel < 1e-4):
+                raise AssertionError(f"float32 RORR kernel deviates from its twin: {maxrel:.3e}")
+            t32 = event_ms(lambda: rorr_cuda.k_rorr_mix_cuda(x, wb32, wb_e32), device, reps)
+            print(f"  RORR nbin=8 R={R} float32: kernel {t32:.3f} ms, maxrel {maxrel:.3e} "
+                  f"against the float32 twin")
+            del x, got, want
+        del tks
+        torch.cuda.empty_cache()
 
     # a run-time nbin (not 8 or 16) at a smaller R
     nbin, R = 12, 16 * nw * nz
@@ -588,7 +614,35 @@ def phase_radtran_path(device, B=B_COLS, K=K_INNER, nz_template=NZ_TEMPLATE, rep
           f"plain path (median of 3) {t_plain:.3f} ms")
     print(f"  two-stream solves/s: kernel path {solves / (t_kernel / 1e3):.6e}, "
           f"plain path {solves / (t_plain / 1e3):.6e} ({solves} solves per batch)")
+
+    # where one batch's device time goes, by kernel (torch.profiler)
+    times = device_ms_by_kernel(lambda: radiate_many(*batch), device)
+    busy = sum(times.values())
+    if busy == 0.0:
+        print("  profiler: no device time recorded (not measured)")
+    else:
+        groups = {"RORR": "rorr_chain", "two-stream": "twostream"}
+        shares = {g: sum(ms for name, ms in times.items() if key in name) for g, key in groups.items()}
+        shares["other"] = busy - sum(shares.values())
+        print(f"  profiler, one batch: device busy {busy:.3f} ms in {len(times)} kernel "
+              f"names; " + ", ".join(f"{g} {ms:.3f} ms ({100 * ms / busy:.1f} %)"
+                                     for g, ms in shares.items()))
     return launches
+
+
+def device_ms_by_kernel(fn, device):
+    """Device time in ms of each kernel name in one run of fn, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync(device)
+    times = collections.Counter()
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            times[evt.name] += evt.time_range.elapsed_us() / 1e3
+    return times
 
 
 def entry_batch(c, B=ENTRY_B):

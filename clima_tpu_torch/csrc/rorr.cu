@@ -4,116 +4,295 @@
 // Replaces the JAX package's Pallas TPU kernel
 //   clima_tpu/ops/pallas_rorr.py::k_rorr_mix_pallas_t
 //     (_kernel_factory + _mix_one_rank)
-// which computes k_rorr (clima_radtran_types.f90:780-888) without a sort:
-// the conservative rebin only needs each pair's lower cumulative-weight edge
-// in the sorted order, its weighted rank
-//   lower[p] = sum_k wxy[k] * [ikey_k < ikey_p + (p > k)]
-// on the bit patterns of the non-negative keys (order-isomorphic to their
-// values). The "+ (p > k)" term is the stable-sort index tie-break, exact:
-// folding the index into the key instead is not injective and gives two
-// pairs the same rank window (an O(pair weight) error, seen only in float32).
+// which computes k_rorr (clima_radtran_types.f90:780-888): per lane and
+// species pair, the nbin^2 pair keys key[p] = a[p / nbin] + b[p % nbin] (a
+// the running mix, b the next species) with weights wxy[p], stably sorted;
+// each pair's window [lower, lower + wxy[p]) in the cumulative weight of the
+// sorted order is rebinned conservatively onto the nbin master bins. The
+// stable order is the composite (bits of the key, p) compared
+// lexicographically: the bit patterns of non-negative keys order as their
+// values, and p breaks exact ties as the sort twin's stable sort does
+// (ops/rorr.py). The index is never folded into the key: that is not
+// injective and gives two pairs the same window (an O(pair weight) error,
+// seen only in float32).
 //
-// Design. One thread per lane (one (column, bin, layer) of the flattened
-// batch R). The lane's nk x nbin inputs are read from the (nk, nbin, R)
-// layout with R on the thread index, so every load and the (nbin, R) store
-// are coalesced. The running mix stays in registers across the whole species
-// chain. Pair keys are formed as keys[p] = a[p % nbin] + b[p / nbin] (a the
-// running mix, b the next species) with the inner rank loop unrolled, so key
-// indices are compile-time and both small operand arrays live in registers;
-// each pair's rank window is then rebinned by overlap onto the nbin master
-// edges. What bounds it: the nbin^4 integer compares per lane and species
-// pair (4096 at nbin 8, 65536 at nbin 16) — compute, not memory. nbin 8
-// and 16 are compiled with nbin known, so every small array stays in
-// registers; any other nbin up to 16 runs the same code with nbin read at run
-// time (NBIN = 0), its arrays then indexed dynamically in local memory.
+// Design. A group of G threads (a power of two, G <= 32, so a group lies in
+// one warp) handles one lane (one (column, bin, layer) of the flattened batch
+// R); a block of 256 threads holds 256 / G lanes. Each species' (nbin, lanes)
+// slice is staged into shared memory with loads coalesced along R; the
+// running mix of each lane stays in shared memory across the whole species
+// chain and is stored once, coalesced, at the end. Per species pair:
+//   1. each thread forms E = NP / G pair keys once (one add each) and keeps
+//      them as composites (bits, p) in registers, in the blocked layout
+//      (sorted position = t * E + slot);
+//   2. a bitonic network sorts the NP composites: partners in the same
+//      thread are compare-exchanged in registers with compile-time slots,
+//      partners in other threads are reached with __shfl_xor_sync of width
+//      G; NP (log2 NP)(log2 NP + 1) / 4 compare-exchanges per lane, 672 at
+//      nbin 8 and 4608 at nbin 16 (the rank form needed nbin^4);
+//   3. two group scans (sequential within the thread, Hillis-Steele
+//      shuffles across) give each pair's lower edge in the cumulative weight
+//      and the integral of key over the weight below each thread's pairs;
+//   4. the rebin is the sort twin's: F(e) = sum key * clamp(e - lower, 0, w)
+//      at the nbin + 1 master edges, mix[j] = (F(e[j+1]) - F(e[j])) / (e[j+1]
+//      - e[j]). Each edge is taken by its owner, the last thread whose first
+//      pair starts at or below it (a warp ballot), which adds its own E
+//      pairs' terms to the integral below it; the owners' F go through
+//      shared memory to the thread of each bin. So the rebin costs E terms
+//      per owned edge, not nbin * E per thread.
+// nbin 8 (NP 64, G 8) and 16 (NP 256, G 32) are compiled with nbin fixed.
+// Any other nbin runs an instance with nbin read at run time whose NP is the
+// next of 16, 64 or 256 (G 4, 8, 32): the NP - nbin^2 pad composites carry
+// the largest key bits, so they sort last, weigh 0 and are masked out of the
+// rebin (a pad's key bits are a NaN). Every array index is a compile-time
+// constant after unrolling, so nothing is spilled to local memory.
+// What bounds it: operations, not memory (each input is read once and the
+// output written once): the network's integer compares, selects and
+// shuffles, then the scans and the edge work.
 
+#include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-__device__ __forceinline__ int32_t key_bits(float x) { return __float_as_int(x); }
-__device__ __forceinline__ long long key_bits(double x) { return __double_as_longlong(x); }
+constexpr int BLOCK = 256;
+constexpr unsigned FULL = 0xffffffffu;
 
-template <typename T, int NBIN>
-__global__ void rorr_chain_kernel(const T* __restrict__ tau_ks, int nk, int nbin_rt, int64_t R,
-                                  const T* __restrict__ wxy_g, const T* __restrict__ wbin_e_g,
-                                  T* __restrict__ out) {
-  // NBIN > 0: nbin fixed at compile time; NBIN == 0: nbin_rt (<= CAP)
-  constexpr int CAP = NBIN > 0 ? NBIN : 16;
-  const int nbin = NBIN > 0 ? NBIN : nbin_rt;
-  const int np = nbin * nbin;
-  using I = decltype(key_bits(T(0)));
-  __shared__ T wxy[CAP * CAP];
-  __shared__ T edges[CAP + 1];
-  for (int i = threadIdx.x; i < np; i += blockDim.x) wxy[i] = wxy_g[i];
-  for (int i = threadIdx.x; i <= nbin; i += blockDim.x) edges[i] = wbin_e_g[i];
-  __syncthreads();
+__host__ __device__ constexpr int ilog2(int n) { return n <= 1 ? 0 : 1 + ilog2(n / 2); }
 
-  const int64_t r = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (r >= R) return;
+template <typename T>
+struct Pair;
 
-  T a[CAP];
-#pragma unroll
-  for (int i = 0; i < nbin; ++i) a[i] = tau_ks[int64_t(i) * R + r];
+// float: one 64-bit integer, (key bits with the sign bit flipped) << 32 | p,
+// whose unsigned order is the composite's.
+template <>
+struct Pair<float> {
+  unsigned long long c;
+  __device__ static Pair make(float key, int p) {
+    const unsigned u = unsigned(__float_as_int(key)) ^ 0x80000000u;
+    return {(static_cast<unsigned long long>(u) << 32) | unsigned(p)};
+  }
+  __device__ static Pair pad(int p) { return {(0xffffffffull << 32) | unsigned(p)}; }
+  __device__ float key() const { return __int_as_float(int(unsigned(c >> 32) ^ 0x80000000u)); }
+  __device__ int index() const { return int(unsigned(c)); }
+  __device__ bool operator<(const Pair& o) const { return c < o.c; }
+  __device__ Pair shfl_xor(int mask, int width) const {
+    return {__shfl_xor_sync(FULL, c, mask, width)};
+  }
+};
 
-  for (int s = 1; s < nk; ++s) {
-    T b[CAP];
-#pragma unroll
-    for (int i = 0; i < nbin; ++i) b[i] = tau_ks[(int64_t(s) * nbin + i) * R + r];
+// double: the key's bits (signed order) and p.
+template <>
+struct Pair<double> {
+  long long bits;
+  int p;
+  __device__ static Pair make(double key, int p) { return {__double_as_longlong(key), p}; }
+  __device__ static Pair pad(int p) { return {LLONG_MAX, p}; }
+  __device__ double key() const { return __longlong_as_double(bits); }
+  __device__ int index() const { return p; }
+  __device__ bool operator<(const Pair& o) const {
+    return (bits < o.bits) | ((bits == o.bits) & (p < o.p));
+  }
+  __device__ Pair shfl_xor(int mask, int width) const {
+    return {__shfl_xor_sync(FULL, bits, mask, width), __shfl_xor_sync(FULL, p, mask, width)};
+  }
+};
 
-    T acc[CAP];
+// One stage of the bitonic network over the group's NP = G * E composites,
+// thread t holding positions t * E .. t * E + E - 1: merge size 2^LK,
+// partner distance 2^LJ.
+template <typename T, int E, int G, int LK, int LJ>
+__device__ __forceinline__ void bitonic_stage(Pair<T> (&x)[E], int t) {
+  constexpr int k = 1 << LK, j = 1 << LJ;
+  if constexpr (j >= E) {
+    constexpr int m = j / E;  // the partner is thread t ^ m, same slot
+    const bool keep_min = ((t & m) == 0) == (((t * E) & k) == 0);
 #pragma unroll
-    for (int j = 0; j < nbin; ++j) acc[j] = T(0);
-
-    for (int p = 0; p < np; ++p) {
-      // key_p = a[p % nbin] + b[p / nbin], selected without dynamic indexing
-      T ap = a[0], bp = b[0];
+    for (int q = 0; q < E; ++q) {
+      const Pair<T> y = x[q].shfl_xor(m, G);
+      x[q] = ((y < x[q]) == keep_min) ? y : x[q];
+    }
+  } else {
 #pragma unroll
-      for (int i = 1; i < nbin; ++i) {
-        ap = (p % nbin == i) ? a[i] : ap;
-        bp = (p / nbin == i) ? b[i] : bp;
-      }
-      const T key_p = ap + bp;
-      const I ip = key_bits(key_p);
-      T lower = T(0);
-#pragma unroll
-      for (int k = 0; k < np; ++k) {
-        const I ik = key_bits(a[k % nbin] + b[k / nbin]);
-        const I tgt = ip + (p > k ? 1 : 0);
-        lower += (ik < tgt) ? wxy[k] : T(0);
-      }
-      const T upper = lower + wxy[p];
-#pragma unroll
-      for (int j = 0; j < nbin; ++j) {
-        T ov = fmin(upper, edges[j + 1]) - fmax(lower, edges[j]);
-        acc[j] += key_p * (ov > T(0) ? ov : T(0));
+    for (int q = 0; q < E; ++q) {
+      const int q2 = q ^ j;
+      if (q2 > q) {
+        const bool asc = ((t * E + q) & k) == 0;
+        const bool swap = (x[q2] < x[q]) == asc;
+        const Pair<T> lo = swap ? x[q2] : x[q];
+        const Pair<T> hi = swap ? x[q] : x[q2];
+        x[q] = lo;
+        x[q2] = hi;
       }
     }
-#pragma unroll
-    for (int j = 0; j < nbin; ++j) a[j] = acc[j] * (T(1) / (edges[j + 1] - edges[j]));
   }
-
-#pragma unroll
-  for (int j = 0; j < nbin; ++j) out[int64_t(j) * R + r] = a[j];
 }
 
-template <typename T, int NBIN>
+// The network's stages in order: (LK, LJ) = (1, 0), (2, 1), (2, 0), (3, 2), ...
+// Unrolled by template recursion, so every slot index is a constant.
+template <typename T, int E, int G, int LOG_NP, int LK = 1, int LJ = 0>
+__device__ __forceinline__ void bitonic_sort(Pair<T> (&x)[E], int t) {
+  bitonic_stage<T, E, G, LK, LJ>(x, t);
+  if constexpr (LJ > 0) {
+    bitonic_sort<T, E, G, LOG_NP, LK, LJ - 1>(x, t);
+  } else if constexpr (LK < LOG_NP) {
+    bitonic_sort<T, E, G, LOG_NP, LK + 1, LK>(x, t);
+  }
+}
+
+// The group's exclusive prefix sum of v over its threads t = 0 .. G - 1
+// (Hillis-Steele with shuffles).
+template <typename T, int G>
+__device__ __forceinline__ T group_exclusive_scan(T v, int t) {
+#pragma unroll
+  for (int ld = 0; ld < ilog2(G); ++ld) {
+    const T u = __shfl_up_sync(FULL, v, 1 << ld, G);
+    if (t >= (1 << ld)) v += u;
+  }
+  const T ex = __shfl_up_sync(FULL, v, 1, G);
+  return t == 0 ? T(0) : ex;
+}
+
+// NBIN > 0: nbin fixed at compile time (NP == NBIN^2); NBIN == 0: nbin_rt,
+// with nbin_rt^2 <= NP. NB = sqrt(NP) is the largest nbin of the instance.
+template <typename T, int NBIN, int NP, int G>
+__global__ void __launch_bounds__(BLOCK)
+rorr_chain_kernel(const T* __restrict__ tau_ks, int nk, int nbin_rt, int64_t R,
+                  const T* __restrict__ wxy_g, const T* __restrict__ wbin_e_g,
+                  T* __restrict__ out) {
+  constexpr int LOG_NP = ilog2(NP), LOG_G = ilog2(G);
+  constexpr int NB = 1 << (LOG_NP / 2);
+  constexpr int E = NP / G;        // pair slots per thread
+  constexpr int LPB = BLOCK / G;   // lanes per block
+  constexpr int LS = NB + 1;       // per-lane row stride in shared memory (odd)
+  static_assert(NB * NB == NP && (1 << LOG_G) == G && G <= 32 && G >= NB && E >= 1,
+                "unsupported RORR instance");
+  static_assert(NBIN == 0 || NBIN == NB, "a fixed nbin fills NP");
+  const int nbin = NBIN > 0 ? NBIN : nbin_rt;
+  const int np = nbin * nbin;
+
+  __shared__ T wxy[NP];
+  __shared__ T edges[NB + 1];
+  __shared__ T mix[LPB * LS];  // running mix of each lane
+  __shared__ T nxt[LPB * LS];  // next species of each lane
+  __shared__ T Fe[LPB * LS];   // the cumulative integral at each master edge
+
+  const int64_t r0 = int64_t(blockIdx.x) * LPB;
+  const int l = threadIdx.x / G;  // the thread's lane in the block
+  const int t = threadIdx.x % G;  // its rank in the lane's group
+  const int gbase = threadIdx.x % 32 - t;  // the group's first bit in a warp ballot
+  const unsigned gmask = G == 32 ? FULL : (1u << G) - 1u;
+
+  // species s of the block's lanes into dst, coalesced along R
+  auto stage = [&](T* dst, int s) {
+    for (int i = threadIdx.x; i < nbin * LPB; i += BLOCK) {
+      const int row = i / LPB, ll = i % LPB;
+      const int64_t r = r0 + ll;
+      dst[ll * LS + row] = r < R ? tau_ks[(int64_t(s) * nbin + row) * R + r] : T(0);
+    }
+  };
+
+  for (int i = threadIdx.x; i < NP; i += BLOCK) wxy[i] = i < np ? wxy_g[i] : T(0);
+  for (int i = threadIdx.x; i <= nbin; i += BLOCK) edges[i] = wbin_e_g[i];
+  stage(mix, 0);
+
+  for (int s = 1; s < nk; ++s) {
+    __syncthreads();  // the previous pair is done with nxt (and mix, wxy, edges are staged)
+    stage(nxt, s);
+    __syncthreads();
+    const T* a = mix + l * LS;
+    const T* b = nxt + l * LS;
+
+    // 1. pair keys, formed once: p = i * nbin + j, key = a[i] + b[j]
+    Pair<T> x[E];
+#pragma unroll
+    for (int q = 0; q < E; ++q) {
+      const int e = t * E + q;
+      if (NBIN > 0 || e < np) {
+        const int i = e / nbin, j = e - i * nbin;
+        x[q] = Pair<T>::make(a[i] + b[j], e);
+      } else {
+        x[q] = Pair<T>::pad(e);
+      }
+    }
+
+    // 2. bitonic sort of the composites, ascending in position t * E + q
+    bitonic_sort<T, E, G, LOG_NP>(x, t);
+
+    // 3. lower edges: the group's exclusive scan of the weights in sorted
+    //    order; and of key * weight, the integral below the thread's pairs.
+    //    A pair's key and weight are read again from its composite when
+    //    needed, so only the composites stay in registers.
+    T run = T(0), run_kw = T(0);
+#pragma unroll
+    for (int q = 0; q < E; ++q) {
+      const int p = x[q].index();
+      const T w = wxy[p];  // pads weigh 0
+      run_kw += (p < np ? x[q].key() : T(0)) * w;  // a pad's key is masked
+      run += w;
+    }
+    const T off = group_exclusive_scan<T, G>(run, t);
+    const T below = group_exclusive_scan<T, G>(run_kw, t);
+
+    // 4. rebin: F(e) = sum key * clamp(e - lower, 0, w) at each master edge e,
+    //    taken by the edge's owner (the last thread whose first pair starts
+    //    at or below e), then mix[j] = (F(e[j+1]) - F(e[j])) / (e[j+1] - e[j])
+    int first = 0, count = 0;
+#pragma unroll
+    for (int jb = 0; jb <= NB; ++jb) {
+      if (NBIN > 0 || jb <= nbin) {  // the same for the whole warp
+        const unsigned bal = (__ballot_sync(FULL, off <= edges[jb]) >> gbase) & gmask;
+        if ((bal ? 31 - __clz(bal) : 0) == t) {
+          first = count == 0 ? jb : first;
+          ++count;
+        }
+      }
+    }
+    for (int c = 0; c < count; ++c) {
+      const T e = edges[first + c];
+      T F = below, r = T(0);
+#pragma unroll
+      for (int q = 0; q < E; ++q) {
+        const int p = x[q].index();
+        const T w = wxy[p];
+        F += (p < np ? x[q].key() : T(0)) * fmin(fmax(e - (r + off), T(0)), w);
+        r += w;  // r + off is the pair's lower edge
+      }
+      Fe[l * LS + first + c] = F;
+    }
+    __syncwarp();  // F is written, and the group has read a before it is overwritten
+    if (t < nbin)
+      mix[l * LS + t] = (Fe[l * LS + t + 1] - Fe[l * LS + t]) / (edges[t + 1] - edges[t]);
+  }
+
+  __syncthreads();
+  for (int i = threadIdx.x; i < nbin * LPB; i += BLOCK) {
+    const int row = i / LPB, ll = i % LPB;
+    const int64_t r = r0 + ll;
+    if (r < R) out[int64_t(row) * R + r] = mix[ll * LS + row];
+  }
+}
+
+template <typename T, int NBIN, int NP, int G>
 int launch(const void* tau_ks, int nk, int nbin, long long R, const void* wxy,
            const void* wbin_e, void* out, cudaStream_t stream) {
-  const int threads = 128;
-  long long blocks = (R + threads - 1) / threads;
-  rorr_chain_kernel<T, NBIN><<<dim3(unsigned(blocks)), threads, 0, stream>>>(
+  constexpr int LPB = BLOCK / G;
+  const long long blocks = (R + LPB - 1) / LPB;
+  rorr_chain_kernel<T, NBIN, NP, G><<<dim3(unsigned(blocks)), BLOCK, 0, stream>>>(
       (const T*)tau_ks, nk, nbin, R, (const T*)wxy, (const T*)wbin_e, (T*)out);
   return int(cudaGetLastError());
 }
 
+// instance by nbin: (NBIN, NP, G); ops/rorr_cuda.py::_INSTANCES mirrors it
 template <typename T>
 int dispatch(int nbin, int nk, long long R, const void* tau_ks, const void* wxy,
              const void* wbin_e, void* out, cudaStream_t s) {
-  if (nbin == 8) return launch<T, 8>(tau_ks, nk, nbin, R, wxy, wbin_e, out, s);
-  if (nbin == 16) return launch<T, 16>(tau_ks, nk, nbin, R, wxy, wbin_e, out, s);
-  return launch<T, 0>(tau_ks, nk, nbin, R, wxy, wbin_e, out, s);
+  if (nbin == 8) return launch<T, 8, 64, 8>(tau_ks, nk, nbin, R, wxy, wbin_e, out, s);
+  if (nbin == 16) return launch<T, 16, 256, 32>(tau_ks, nk, nbin, R, wxy, wbin_e, out, s);
+  if (nbin <= 4) return launch<T, 0, 16, 4>(tau_ks, nk, nbin, R, wxy, wbin_e, out, s);
+  if (nbin <= 8) return launch<T, 0, 64, 8>(tau_ks, nk, nbin, R, wxy, wbin_e, out, s);
+  return launch<T, 0, 256, 32>(tau_ks, nk, nbin, R, wxy, wbin_e, out, s);
 }
 
 }  // namespace

@@ -75,10 +75,10 @@ def _rorr_mix(tau_ks_t, wbin, wbin_e):
 
     nbin alone picks the path, on every device, as in the JAX package
     (``clima_tpu/radtran/opacity.py:185-206``): nbin <= 16 goes through the
-    rank kernel (:func:`k_rorr_mix_cuda`; its plain twin for CPU tensors);
-    past nbin=16 the rank form's O(nbin^4) cost per species pair loses to the
-    sort path (PARITY.md), so the sort path :func:`k_rorr_mix` runs on the
-    tensors' own device, with the reference's warning.
+    RORR kernel (:func:`k_rorr_mix_cuda`, a sort of each lane's nbin^2 pair
+    keys by a group of threads; its plain twin for CPU tensors); past
+    nbin=16, the reference's threshold, the sort path :func:`k_rorr_mix`
+    runs on the tensors' own device, with the reference's warning.
     """
     nk, nbin, _ = tau_ks_t.shape
     if nk == 1:

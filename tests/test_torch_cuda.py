@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain twins on the card (float64,
-small shapes), the nbin > 16 RORR routing and AdiabatClimate on the card. Skipped where no CUDA device is present; on a GPU machine:
+RORR also in float32 and on ties; small shapes), the nbin > 16 RORR routing
+and AdiabatClimate on the card. Skipped where no CUDA device is present; on a GPU machine:
 ``python -m pytest --noconftest tests/test_torch_cuda.py -m cuda`` (the
 suite's conftest configures JAX, which a GPU machine need not have)."""
 
@@ -77,6 +78,50 @@ def test_rorr_kernel_matches_twin(dev, nbin):
     got = rorr_cuda.k_rorr_mix_cuda(tks, t(wbin), wbin_e)
     want = rorr.k_rorr_mix(tks.movedim(1, -1), wbin_e).movedim(-1, 0)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-9)
+
+
+def _rorr_case(case, nbin, R, dtype, rng):
+    """(nk=3, nbin, R) inputs of one tie or type case."""
+    tks = 10 ** rng.uniform(-6, 1, (3, nbin, R))
+    if case == "equal":  # every lane's nbin^2 keys equal at each species
+        tks = np.broadcast_to(np.array([0.25, 0.5, 0.125])[:, None, None], tks.shape).copy()
+    elif case == "rounded":  # a[i] + b[j] equal for all i only after rounding
+        eps = np.finfo(np.float32 if dtype == torch.float32 else np.float64).eps
+        tks[0] = 1.0 + np.arange(nbin)[:, None] * eps
+        tks[1] = 64.0 + np.arange(nbin)[:, None]
+        tks[:2] *= 2.0 ** rng.integers(-3, 4, R)  # exact per-lane scale
+    elif case == "zeros":  # zero lanes, a zero species, zero keys
+        tks[:, :, ::5] = 0.0
+        tks[1, :, 1::5] = 0.0
+        tks[0, : (nbin + 1) // 2, 2::5] = 0.0
+    return tks
+
+
+@pytest.mark.parametrize("case", ["random", "equal", "rounded", "zeros"])
+@pytest.mark.parametrize("nbin", [1, 2, 3, 8, 12, 16])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_rorr_kernel_ties_and_types(dev, dtype, nbin, case):
+    """The kernel against its twin on ties, zeros and both types, at an R
+    that is no multiple of any instance's lanes per block (8, 32 or 64 lanes
+    of 256 threads). float64: rtol 1e-9. float32: the largest error under
+    1e-4 of the largest value (the twin's edge differences round in float32)."""
+    rng = np.random.default_rng(nbin)
+    R = 1001
+    t = lambda x: torch.tensor(x, dtype=dtype, device=dev)
+    tks = t(_rorr_case(case, nbin, R, dtype, rng))
+    w = rng.uniform(0.5, 1.5, nbin)
+    wbin = w / w.sum()
+    wbin_e = t(np.concatenate([[0.0], np.cumsum(wbin)]))
+    n = rorr_cuda.k_rorr_mix_cuda.launches
+    got = rorr_cuda.k_rorr_mix_cuda(tks, t(wbin), wbin_e)
+    assert rorr_cuda.k_rorr_mix_cuda.launches == n + 1 and got.dtype == dtype
+    want = rorr.k_rorr_mix(tks.movedim(1, -1), wbin_e).movedim(-1, 0)
+    got, want = got.double().cpu().numpy(), want.double().cpu().numpy()
+    assert np.isfinite(got).all()
+    if dtype == torch.float64:
+        np.testing.assert_allclose(got, want, rtol=1e-9, atol=0.0)
+    else:
+        assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
 
 
 def test_rorr_past_nbin_16_runs_on_the_card(dev):

@@ -1,7 +1,8 @@
 """RORR k-mixing of the PyTorch port against clima_tpu (CPU): the sort-path
-twin against the reference's XLA path and its Pallas kernel in interpret
-mode (float64, rtol 1e-9), and the rank-form reference's tie handling,
-including the float32 near-tie chain."""
+twin and the plain model of the CUDA kernel's schedule
+(``mix_pair_sorted_ref``) against the reference's XLA path, its rank form and
+its Pallas kernel in interpret mode (float64, rtol 1e-9), and the tie
+handling of both plain forms, including the float32 near-tie chain."""
 
 import functools
 import warnings
@@ -100,6 +101,67 @@ def test_rank_mix_near_tie_collision_f32():
     assert maxrel < 1e-4, f"rank chain deviates from sort path: {maxrel:.3e}"
 
 
+def _sorted_chain(rows, wbin, wbin_e):
+    wxy = rorr.make_wxy(wbin)
+    mixed = rows[0]
+    for k in range(1, rows.shape[0]):
+        mixed = rorr_cuda.mix_pair_sorted_ref(mixed, rows[k], wxy, wbin_e)
+    return mixed
+
+
+@pytest.mark.parametrize("nbin", [1, 3, 8, 12, 16])
+def test_sorted_ref_matches_reference(interpret, nbin):
+    """The kernel's schedule (padded to 16, 64 or 256 pairs for nbin 1, 3 and
+    12) against the JAX package: one pair mix against its rank form, the
+    three-species chain against its XLA sort path and its Pallas kernel."""
+    rng = np.random.default_rng(10 + nbin)
+    tau_ks = 10 ** rng.uniform(-6, 1, (3, 37, nbin))
+    wbin, wbin_e = _weights(rng, nbin)
+    wxy = np.outer(wbin, wbin).reshape(-1)
+    pair = rorr_cuda.mix_pair_sorted_ref(*(torch.tensor(x) for x in (tau_ks[0], tau_ks[1], wxy,
+                                                                       wbin_e)))
+    want = np.asarray(ref_rank(jnp.asarray(tau_ks[0]), jnp.asarray(tau_ks[1]), wxy, wbin_e))
+    np.testing.assert_allclose(pair.numpy(), want, rtol=1e-9)
+    got = _sorted_chain(torch.tensor(tau_ks), torch.tensor(wbin), torch.tensor(wbin_e)).numpy()
+    xla = np.asarray(ref_rorr.k_rorr_mix(jnp.asarray(tau_ks), jnp.asarray(wbin_e)))
+    kern = np.asarray(k_rorr_mix_pallas(jnp.asarray(tau_ks), wbin, wbin_e, block_l=128))
+    np.testing.assert_allclose(got, xla, rtol=1e-9)
+    np.testing.assert_allclose(got, kern, rtol=1e-9)
+
+
+@pytest.mark.parametrize("nbin", [3, 8, 16])
+def test_sorted_ref_tie_handling(nbin):
+    """All nbin^2 keys equal: the sort still gives each pair its own window
+    (pads included), so the mix is the key everywhere."""
+    a = torch.full((16, nbin), 0.25, dtype=torch.float64)
+    b = torch.full((16, nbin), 0.5, dtype=torch.float64)
+    w = torch.full((nbin,), 1.0 / nbin, dtype=torch.float64)
+    wbin_e = torch.cat([torch.zeros(1, dtype=torch.float64), torch.cumsum(w, 0)])
+    got = rorr_cuda.mix_pair_sorted_ref(a, b, rorr.make_wxy(w), wbin_e)
+    np.testing.assert_allclose(got.numpy(), 0.75, rtol=1e-12)
+    ref = np.asarray(ref_rank(jnp.asarray(a.numpy()), jnp.asarray(b.numpy()),
+                              rorr.make_wxy(w).numpy(), wbin_e.numpy()))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-12)
+
+
+def test_sorted_mix_near_tie_collision_f32():
+    """The float32 near-tie chain of test_rank_mix_near_tie_collision_f32
+    through the kernel's schedule: the composite (bits, index) order keeps
+    it within 1e-4 of the sort path."""
+    rng = np.random.default_rng(1)
+    nk, R, nbin = 3, 16 * 101, 8
+    wbin = np.polynomial.legendre.leggauss(nbin)[1] / 2.0
+    wbin_e = np.concatenate([[0.0], np.cumsum(wbin)])
+    wbin_e[-1] = 1.0
+    tau_ks = torch.tensor(10.0 ** rng.uniform(-6, 2, (nk, R, nbin)), dtype=torch.float32)
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32)
+    sort_path = rorr.k_rorr_mix(tau_ks, f32(wbin_e)).double()
+    mixed = _sorted_chain(tau_ks, f32(wbin), f32(wbin_e))
+    assert mixed.dtype == torch.float32
+    maxrel = float((mixed.double() - sort_path).abs().max() / sort_path.abs().max())
+    assert maxrel < 1e-4, f"sorted chain deviates from sort path: {maxrel:.3e}"
+
+
 def test_k_aee_mix_and_pair_weights_match_reference():
     rng = np.random.default_rng(4)
     tau_ks = 10 ** rng.uniform(-6, 1, (3, 5, 9, 8))
@@ -142,7 +204,7 @@ def test_opacity_rorr_routing_past_nbin_16():
 
 
 def test_rorr_past_nbin_16_takes_the_sort_path():
-    """nbin alone routes: at nbin=20 the rank kernel's wrapper is never called
+    """nbin alone routes: at nbin=20 the kernel's wrapper is never called
     and the sort path gives the JAX package's XLA result; at nbin=16 the
     wrapper is called."""
     rng = np.random.default_rng(7)
