@@ -331,7 +331,7 @@ def phase_kernels(device, B=B_COLS, nz=NZ_R, nw_ir=28, nw_sol=32, nw=51, nG=8,
         wb = w / w.sum()
         wb_e = torch.cat([torch.zeros(1, dtype=torch.float64, device=device), torch.cumsum(wb, 0)])
         tks = 10.0 ** (-6.0 + 7.0 * rand(3, nbin, R))
-        chunk = (1 << 25) // (nbin * nbin)
+        chunk = opacity._SORT_CHUNK_KEYS // (nbin * nbin)
         twin = lambda x, we: torch.cat([k_rorr_mix(x[:, :, i:i + chunk].movedim(1, -1), we)
                                         .movedim(-1, 0) for i in range(0, R, chunk)], dim=1)
         compare("k_rorr_mix", [rorr_cuda.k_rorr_mix_cuda(tks, wb, wb_e)], [twin(tks, wb_e)],

@@ -431,6 +431,7 @@ int dispatch_rows(int solar, int u0_per_row, const void* tau, const void* w0, co
                    tau_min, scratch, out_am, out_fup, out_fdn, out_srad, s
   if (!solar) return launch<T, false, false, 1, false, false>(CLIMA_ARGS);
   if (u0_per_row) return launch<T, true, true, 1, false, true>(CLIMA_ARGS);
+  if (nzen < 1 || nzen > 8) return int(cudaErrorInvalidValue);
   if (nzen <= 4) return launch<T, true, true, 4, false, false>(CLIMA_ARGS);
   return launch<T, true, true, 8, false, false>(CLIMA_ARGS);
 #undef CLIMA_ARGS

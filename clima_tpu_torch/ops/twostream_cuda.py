@@ -32,6 +32,10 @@ __all__ = ["two_stream_ir_weighted_cuda", "two_stream_solar_multi_weighted_cuda"
            "two_stream_ir_auto", "two_stream_solar_multi_auto", "two_stream_solar_auto"]
 
 
+# zenith angles of one launch of the unreduced kernel (its largest instance)
+_ROWS_MAX_ZENITHS = 8
+
+
 def _check(tensors, dtype, device):
     for name, t in tensors.items():
         if t.device != device or t.dtype != dtype:
@@ -122,7 +126,9 @@ two_stream_solar_multi_weighted_cuda.launches = 0
 
 def _launch_rows(solar, tau, w0, gt, surf, bpl, u0, u0_per_row, hard, tau_min):
     """Unreduced kernel: IR returns (fup, fdn), each (rows, nz+1); solar
-    returns (amean, srad, fup, fdn) with a leading nzen axis (1 for u0 per row)."""
+    returns (amean, srad, fup, fdn) with a leading nzen axis (1 for u0 per
+    row). One launch takes at most ``_ROWS_MAX_ZENITHS`` shared zenith
+    cosines (the caller groups them: :func:`_zenith_groups`)."""
     rows, nz = tau.shape
     nzen = 1 if (not solar or u0_per_row) else u0.shape[0]
     if w0.shape != tau.shape or gt.shape != tau.shape or surf.shape != (rows,):
@@ -131,8 +137,6 @@ def _launch_rows(solar, tau, w0, gt, surf, bpl, u0, u0_per_row, hard, tau_min):
         raise ValueError("bplanck must be (rows, nz+1)")
     if solar and u0_per_row and u0.shape != (rows,):
         raise ValueError("u0 must be (rows,)")
-    if solar and not 1 <= nzen <= 8:
-        raise ValueError(f"the solar kernel takes 1..8 zenith angles, not {nzen}")
     # right-hand sides of the instantiation: 1 (IR, u0 per row), 4 or 8
     nrhs = 1 if (not solar or u0_per_row) else (4 if nzen <= 4 else 8)
     kw = dict(dtype=tau.dtype, device=tau.device)
@@ -153,6 +157,16 @@ def _launch_rows(solar, tau, w0, gt, surf, bpl, u0, u0_per_row, hard, tau_min):
     if not solar:
         return fup[0], fdn[0]
     return am, srad, fup, fdn
+
+
+def _zenith_groups(solve, u0s, size=_ROWS_MAX_ZENITHS):
+    """``solve(u0s[i:i + size])`` over consecutive groups of at most ``size``
+    zenith cosines, each output joined along its leading (zenith) axis. Each
+    zenith's solve is independent of the others', so this is exact."""
+    outs = [solve(u0s[i:i + size]) for i in range(0, u0s.shape[0], size)]
+    if len(outs) == 1:
+        return outs[0]
+    return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
 def _device_checked(tensors):
@@ -189,17 +203,22 @@ def two_stream_solar_multi_auto(tau, w0, gt, u0s, Rsfc):
     """Multi-zenith solar two-stream per row (JAX
     ``ops.twostream.two_stream_solar_multi_auto``).
 
-    tau/w0/gt (rows, nz) TOA-down, u0s (nzen,) shared by all rows (nzen <= 8
-    on the card), Rsfc (rows,). Returns (amean, surface_radiance, fup, fdn):
-    amean/fup/fdn (nzen, rows, nz+1), surface_radiance (nzen, rows).
+    tau/w0/gt (rows, nz) TOA-down, u0s (nzen,) shared by all rows, Rsfc
+    (rows,). Returns (amean, surface_radiance, fup, fdn): amean/fup/fdn
+    (nzen, rows, nz+1), surface_radiance (nzen, rows). On the card one
+    launch takes up to 8 zenith angles; more run as groups of 8.
     Twin: :func:`.twostream.two_stream_solar_multi`.
     """
     if tau.device.type == "cpu":
         return ts.two_stream_solar_multi(tau, w0, gt, u0s, Rsfc)
     _device_checked(dict(tau=tau, w0=w0, gt=gt, u0s=u0s, Rsfc=Rsfc))
-    out = _launch_rows(True, tau, w0, gt, Rsfc, None, u0s, False, False, 0.0)
-    two_stream_solar_multi_auto.launches += 1
-    return out
+
+    def launch(u0_group):
+        out = _launch_rows(True, tau, w0, gt, Rsfc, None, u0_group, False, False, 0.0)
+        two_stream_solar_multi_auto.launches += 1
+        return out
+
+    return _zenith_groups(launch, u0s)
 
 
 two_stream_solar_multi_auto.launches = 0

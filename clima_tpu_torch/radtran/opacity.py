@@ -24,6 +24,9 @@ from .data import OpticalData
 
 __all__ = ["compute_opacity"]
 
+# pair keys (lanes x nbin^2) per chunk of the sort path past nbin 16
+_SORT_CHUNK_KEYS = 1 << 25
+
 
 def _tiny(dtype):
     return 1e-300 if dtype == torch.float64 else 1e-37
@@ -78,19 +81,29 @@ def _rorr_mix(tau_ks_t, wbin, wbin_e):
     RORR kernel (:func:`k_rorr_mix_cuda`, a sort of each lane's nbin^2 pair
     keys by a group of threads; its plain twin for CPU tensors); past
     nbin=16, the reference's threshold, the sort path :func:`k_rorr_mix`
-    runs on the tensors' own device, with the reference's warning.
+    runs on the tensors' own device, with the reference's warning, over
+    chunks of at most ``_SORT_CHUNK_KEYS`` pair keys (float64 pair tensors of
+    the whole radtran batch at nbin 20 would be ~8.4 GB each).
     """
-    nk, nbin, _ = tau_ks_t.shape
+    nk, nbin, R = tau_ks_t.shape
     if nk == 1:
         return tau_ks_t[0]
     if nbin <= 16:
         return k_rorr_mix_cuda(tau_ks_t, wbin, wbin_e)
     warnings.warn(
-        f"RORR with nbin={nbin} > 16: using the sort-based k-mixing path, not the "
-        "rank kernel (O(nbin^4) per pair and slower past nbin=16; see PARITY.md).",
+        f"RORR with nbin={nbin} > 16: using the sort-based k-mixing path, far slower "
+        "than the RORR kernel, which takes nbin <= 16 (the reference's threshold); at "
+        "nbin 16 on an NVIDIA H100 the kernel took 20.154 ms and the sort path "
+        "1066.796 ms (PERF.md).",
         stacklevel=3,
     )
-    return k_rorr_mix(tau_ks_t.movedim(1, -1), wbin_e).movedim(-1, 0)
+    # lanes are independent: chunking bounds the (lanes, nbin^2) pair tensors.
+    # Each chunk is made contiguous, so a lane's result does not depend on the
+    # chunk size (on strided lanes the reductions' order follows the batch).
+    chunk = max(1, _SORT_CHUNK_KEYS // (nbin * nbin))
+    lanes = tau_ks_t.movedim(1, -1)
+    return torch.cat([k_rorr_mix(lanes[:, i:i + chunk].contiguous(), wbin_e)
+                      for i in range(0, R, chunk)]).movedim(-1, 0)
 
 
 def compute_opacity(op: OpticalData, P, T, densities, dz, pdensities=None, radii=None,

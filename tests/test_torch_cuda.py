@@ -4,6 +4,8 @@ and AdiabatClimate on the card. Skipped where no CUDA device is present; on a GP
 ``python -m pytest --noconftest tests/test_torch_cuda.py -m cuda`` (the
 suite's conftest configures JAX, which a GPU machine need not have)."""
 
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
@@ -11,6 +13,7 @@ import torch
 from clima_tpu_torch.adiabat import AdiabatClimate
 from clima_tpu_torch.data import make_template
 from clima_tpu_torch.ops import rorr, rorr_cuda, twostream, twostream_cuda
+from clima_tpu_torch.radtran import opacity
 from clima_tpu_torch.radtran.opacity import _rorr_mix
 
 pytestmark = pytest.mark.cuda
@@ -126,14 +129,16 @@ def test_rorr_kernel_ties_and_types(dev, dtype, nbin, case):
 
 def test_rorr_past_nbin_16_runs_on_the_card(dev):
     """nbin > 16 takes the sort path on the card's own tensors, with the
-    reference's warning, and matches the CPU result."""
+    reference's warning, over several lane chunks (the bound patched to 32
+    lanes of 400 pair keys), and matches the CPU result."""
     rng = np.random.default_rng(9)
     nbin = 20
     tks = 10 ** rng.uniform(-6, 1, (3, nbin, 77))
     w = rng.uniform(0.5, 1.5, nbin)
     wbin = w / w.sum()
     wbin_e = np.concatenate([[0.0], np.cumsum(wbin)])
-    with pytest.warns(UserWarning, match="nbin=20 > 16"):
+    with pytest.warns(UserWarning, match="nbin=20 > 16"), \
+            mock.patch.object(opacity, "_SORT_CHUNK_KEYS", 32 * nbin * nbin):
         got = _rorr_mix(*(torch.tensor(x, device=dev) for x in (tks, wbin, wbin_e)))
     assert got.device == dev
     with pytest.warns(UserWarning, match="nbin=20 > 16"):
@@ -154,14 +159,17 @@ def test_ir_auto_kernel_matches_twin(dev, hard):
     assert twostream_cuda.two_stream_ir_auto.launches == n + 1
 
 
-@pytest.mark.parametrize("nzen", [1, 4, 7])
+@pytest.mark.parametrize("nzen", [1, 4, 7, 9, 12, 16])
 def test_solar_multi_auto_kernel_matches_twin(dev, nzen):
     rows, nz = 300, 31
     tau, w0, gt = _atm(rows, nz, dev, 13)
     rng = np.random.default_rng(14)
     t = lambda x: torch.tensor(x, device=dev)
     args = (tau, w0, gt, t(rng.uniform(0.2, 1.0, nzen)), t(rng.uniform(0.0, 0.6, rows)))
+    n = twostream_cuda.two_stream_solar_multi_auto.launches
     _close(twostream_cuda.two_stream_solar_multi_auto(*args), twostream.two_stream_solar_multi(*args))
+    # one launch per group of at most 8 zenith angles
+    assert twostream_cuda.two_stream_solar_multi_auto.launches == n + (nzen + 7) // 8
 
 
 def test_solar_auto_kernel_matches_twin(dev):

@@ -203,6 +203,23 @@ def test_opacity_rorr_routing_past_nbin_16():
     assert torch.equal(_rorr_mix(one, torch.tensor(wbin), torch.tensor(wbin_e)), one[0])
 
 
+def test_sort_path_runs_in_lane_chunks():
+    """Past nbin 16 the sort path runs over chunks of lanes (here 8 lanes
+    each, the bound patched small), with the warning: the result is bitwise
+    the unchunked sort path's on the same lane-major layout."""
+    rng = np.random.default_rng(8)
+    nbin, R = 20, 37
+    tau_ks = torch.tensor(10 ** rng.uniform(-6, 1, (3, nbin, R)))
+    wbin, wbin_e = (torch.tensor(x) for x in _weights(rng, nbin))
+    with mock.patch.object(opacity, "_SORT_CHUNK_KEYS", 8 * nbin * nbin), \
+            mock.patch.object(opacity, "k_rorr_mix", wraps=rorr.k_rorr_mix) as sort_path:
+        with pytest.warns(UserWarning, match="nbin=20 > 16"):
+            got = _rorr_mix(tau_ks, wbin, wbin_e)
+    assert sort_path.call_count == 5
+    want = rorr.k_rorr_mix(tau_ks.movedim(1, -1).contiguous(), wbin_e).movedim(-1, 0)
+    assert got.shape == (nbin, R) and torch.equal(got, want)
+
+
 def test_rorr_past_nbin_16_takes_the_sort_path():
     """nbin alone routes: at nbin=20 the kernel's wrapper is never called
     and the sort path gives the JAX package's XLA result; at nbin=16 the

@@ -206,6 +206,27 @@ def test_solar_auto_matches_pallas_kernel(interpret):
     _close(got, kern, 1e-10, ATOL_KERNEL)
 
 
+@pytest.mark.parametrize("nzen", [9, 12, 16])
+def test_zenith_groups_match_the_unsplit_solve(nzen):
+    """The zenith groups of the unreduced multi-zenith kernel (at most 8 per
+    launch), with the twin taking the launch's place: split and joined along
+    the zenith axis, the outputs equal the unsplit twin's."""
+    B, nz = 12, 15
+    tau, w0, gt = _atm(B, nz, seed=20 + nzen)
+    rng = np.random.default_rng(21)
+    tt = T(tau, w0, gt, rng.uniform(0.2, 1.0, nzen), rng.uniform(0.0, 0.6, B))
+    sizes = []
+
+    def solve(u0_group):
+        sizes.append(u0_group.shape[0])
+        return ts.two_stream_solar_multi(*tt[:3], u0_group, tt[4])
+
+    got = tc._zenith_groups(solve, tt[3])
+    assert sizes == [8] * (nzen // 8) + [nzen % 8] * (nzen % 8 > 0)
+    assert got[0].shape == (nzen, B, nz + 1) and got[1].shape == (nzen, B)
+    _close(got, [x.numpy() for x in ts.two_stream_solar_multi(*tt)], 1e-13, 0.0)
+
+
 def test_auto_dispatchers_never_hand_accelerator_tensors_to_the_twin():
     meta = lambda *shape: torch.empty(shape, dtype=torch.float64, device="meta")
     with pytest.raises(ValueError):
