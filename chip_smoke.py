@@ -8,21 +8,33 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    fails without a CUDA device (there is no CPU path);
 2. build: the CUDA kernels from clima_tpu_torch/csrc/, one nvcc per source,
    started together, with build seconds and ptxas's registers, stack and
-   spills for each kernel instance; fails if an RORR instance spills;
+   spills for each kernel instance; fails if an instance of the RORR kernel
+   or of the weighted solar kernel spills;
 3. each kernel against its plain PyTorch twin on the card, float64:
    a. the weight-fused kernels of the radtran path at the flagship shapes
-      (IR two-stream with hard and soft surface and a thin layer; solar
-      two-stream with 4 zenith angles, with and without amean; RORR with 3
-      species at nbin 8 and 16, both timed beside the sort twin, and at
-      nbin 8 in float32, timed and held to the float32 twin), at smaller
-      shapes the solar kernel's 5-8 zenith build (6 angles) and RORR at a
-      run-time nbin (12), plus the float32 near-tie RORR chain;
+      (IR two-stream with hard and soft surface and a thin layer; the
+      weighted solar kernel with 4 zenith angles, with and without amean,
+      both timed, and timed in float32 too, where its output must be
+      finite and its deviation from the float64 twin is printed beside the
+      float32 twin's own; RORR with 3 species at nbin 8 and 16, both timed
+      beside the sort twin, and at nbin 8 in float32, timed and held to the
+      float32 twin), at smaller shapes the weighted solar kernel at 6 and
+      12 zenith angles and RORR at a run-time nbin (12), plus the float32
+      near-tie RORR chain; then the nbin > 16 sort path (nbin 20, in lane
+      chunks) once at the radtran path's full lane count, with its time and
+      peak memory, checked against the unchunked sort path on its first
+      lanes;
    b. the unreduced kernels through their dispatchers
       ``two_stream_{ir,solar_multi,solar}_auto`` at the shapes of the JAX
       package's roofline entry point (scripts/roofline.py: rows = 256*60*8,
       nz = 202, the 4 Gauss zenith cosines shared by all rows, or cycled
       over the rows for the single-zenith kernel; IR with a hard and a soft
-      surface and a thin layer), the twins compared in row chunks;
+      surface and a thin layer), and the multi-zenith kernel again at 12
+      zenith angles (two launches; the (zenith, row) pairs with a layer
+      within 1e-4 of the lam^2 = 1/u0^2 resonance of the solar source, where
+      kernel and twin alike amplify roundoff, are counted and must be
+      finite, the others are held to the twin), the twins compared in row
+      chunks;
    kernel and twin times (CUDA events after a warm-up) and each kernel's
    bound: the larger of its bytes over 3.35 TB/s and its float64
    operations over 34 TFLOP/s (NVIDIA H100 SXM data sheet, non-tensor FP64);
@@ -32,7 +44,8 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    8 gauss points, 3 k-species) through compute_opacity -> radiate_ir /
    radiate_solar -> integrate_fluxes, checked against the same calls with
    the three kernels swapped for their plain twins (ISR/OLR rtol 1e-9),
-   and one batch under torch.profiler for its device time by kernel;
+   the batch time and two-stream solves/s, and one batch under
+   torch.profiler for its device time by kernel;
 5. the adiabat path, the ``__graft_entry__.entry`` workload: the nz=50,
    4-zenith template, ``AdiabatClimate`` on the card and
    ``make_column_fns(c)["toa_fluxes"]`` over B=8 columns (moist adiabat ->
@@ -63,6 +76,7 @@ import subprocess
 import sys
 import threading
 import time
+import warnings
 from unittest import mock
 
 import numpy as np
@@ -243,10 +257,11 @@ def phase_build():
             elif "registers" in line or "spill" in line:
                 print("     ", line.strip())
                 stores = re.search(r"(\d+) bytes spill stores", line)
-                if name == "rorr" and stores and int(stores.group(1)) > 0:
+                checked = name == "rorr" or "solar_weighted_kernel" in fn
+                if checked and stores and int(stores.group(1)) > 0:
                     spills.append(fn)
     if spills:
-        raise AssertionError(f"RORR instances spill to local memory: {sorted(set(spills))}")
+        raise AssertionError(f"kernel instances spill to local memory: {sorted(set(spills))}")
 
 
 def _atm(gen, rows, nz, device):
@@ -298,29 +313,46 @@ def phase_kernels(device, B=B_COLS, nz=NZ_R, nw_ir=28, nw_sol=32, nw=51, nG=8,
                 twostream.two_stream_solar_multi_weighted(*sol_args, with_amean=am))
         sync(device)
     r = RESULTS["two_stream_solar_multi_weighted"]
-    r["ms"] = event_ms(lambda: twostream_cuda.two_stream_solar_multi_weighted_cuda(
-        *sol_args, with_amean=False), device, reps)
+    sol_ms = lambda args, am: event_ms(lambda: twostream_cuda.two_stream_solar_multi_weighted_cuda(
+        *args, with_amean=am), device, reps)
+    r["ms"] = sol_ms(sol_args, False)
     r["plain_ms"] = event_ms(lambda: twostream.two_stream_solar_multi_weighted(
         *sol_args, with_amean=False), device, 2)
     set_bound("two_stream_solar_multi_weighted",
               F64 * (3 * rows * nz + rows + 2 * N_ZEN + nG + 2 * (rows // nG) * (nz + 1)),
               rows * nz * twostream_ops(True, N_ZEN))
-    print(f"  solar rows={rows} nz={nz} nzen={N_ZEN}: kernel {r['ms']:.3f} ms, "
-          f"twin {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
-    del tau, w0, gt, rs, sol_args
+    print(f"  solar rows={rows} nz={nz} nzen={N_ZEN}: kernel {r['ms']:.3f} ms (amean on "
+          f"{sol_ms(sol_args, True):.3f} ms), twin {r['plain_ms']:.3f} ms, bound "
+          f"{r['bound_ms']:.3f} ms ({r['bound_by']})")
+    # float32: timed; float32 is no parity mode (the lam^2 = 1/u0^2 resonance
+    # of the solar source), so its output must be finite and its deviation
+    # from the float64 twin is printed beside the float32 twin's own
+    args32 = [a.float() for a in sol_args]
+    want64 = twostream.two_stream_solar_multi_weighted(*sol_args, with_amean=False)
+    got32 = twostream_cuda.two_stream_solar_multi_weighted_cuda(*args32, with_amean=False)
+    twin32 = twostream.two_stream_solar_multi_weighted(*args32, with_amean=False)
+    dev64 = lambda xs: max(float((x.double() - w).abs().max() / w.abs().max())
+                           for x, w in zip(xs[1:], want64[1:]))
+    if not all(bool(torch.isfinite(x).all()) for x in got32[1:]):
+        raise AssertionError("non-finite float32 solar kernel output")
+    print(f"  solar float32: kernel {sol_ms(args32, False):.3f} ms (amean on "
+          f"{sol_ms(args32, True):.3f} ms); largest deviation from the float64 twin over "
+          f"its largest value: kernel {dev64(got32):.3e}, float32 twin {dev64(twin32):.3e}")
+    del tau, w0, gt, rs, sol_args, args32, want64, got32, twin32
 
-    # the 5-8 zenith instantiation (6 angles), with and without amean
+    # 6 and 12 zenith angles, with and without amean
     rows = 16 * nw_sol * nG
-    tau, w0, gt = _atm(gen, rows, nz, device)
-    ang, zw = eqns.zenith_angles_and_weights(6)
-    sol_args = (tau, w0, gt, torch.tensor(np.cos(ang * np.pi / 180.0), device=device),
-                0.6 * rand(rows), torch.tensor(zw, device=device), wbin)
-    for am in (True, False):
-        compare("two_stream_solar_multi_weighted",
-                twostream_cuda.two_stream_solar_multi_weighted_cuda(*sol_args, with_amean=am),
-                twostream.two_stream_solar_multi_weighted(*sol_args, with_amean=am))
-        sync(device)
-    del tau, w0, gt, sol_args
+    for nzen in (6, 12):
+        tau, w0, gt = _atm(gen, rows, nz, device)
+        ang, zw = eqns.zenith_angles_and_weights(nzen)
+        sol_args = (tau, w0, gt, torch.tensor(np.cos(ang * np.pi / 180.0), device=device),
+                    0.6 * rand(rows), torch.tensor(zw, device=device), wbin)
+        for am in (True, False):
+            compare("two_stream_solar_multi_weighted",
+                    twostream_cuda.two_stream_solar_multi_weighted_cuda(*sol_args, with_amean=am),
+                    twostream.two_stream_solar_multi_weighted(*sol_args, with_amean=am))
+            sync(device)
+        del tau, w0, gt, sol_args
 
     # RORR: nk=3, R = B*nw*nz lanes (all 51 master bins), float64 at nbin 8
     # and 16, float32 at nbin 8; the sort twin runs in chunks of lanes, which
@@ -393,6 +425,37 @@ def phase_kernels(device, B=B_COLS, nz=NZ_R, nw_ir=28, nw_sol=32, nw=51, nG=8,
     if not maxrel < 1e-4:
         raise AssertionError("float32 RORR chain deviates from the sort path")
     sync(device)
+    del tks, ref, got
+
+    # past nbin 16: opacity's sort path in lane chunks, once at the radtran
+    # path's R, against the unchunked sort path on its first lanes
+    nbin, R = 20, B * nw * nz
+    w = 0.5 + rand(nbin)
+    wb = w / w.sum()
+    wb_e = torch.cat([torch.zeros(1, dtype=torch.float64, device=device), torch.cumsum(wb, 0)])
+    tks = 10.0 ** (-6.0 + 7.0 * rand(3, nbin, R))
+    sync(device)
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        mixed = opacity._rorr_mix(tks, wb, wb_e)
+    sync(device)
+    t_sort = 1e3 * (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(device) - base
+    if not any("nbin=20 > 16" in str(c.message) for c in caught):
+        raise AssertionError("the nbin > 16 sort path gave no warning")
+    chunk = opacity._SORT_CHUNK_KEYS // (nbin * nbin)
+    lanes = min(R, chunk + chunk // 2)
+    compare("RORR sort path in lane chunks (nbin 20)", [mixed[:, :lanes]],
+            [k_rorr_mix(tks[:, :, :lanes].movedim(1, -1), wb_e).movedim(-1, 0)], rtol=1e-12,
+            atol=0.0)
+    print(f"  RORR nbin=20 R={R} float64, sort path in {-(-R // chunk)} chunks of {chunk} "
+          f"lanes: {t_sort:.3f} ms (one call, host clock), peak device memory above its "
+          f"inputs {peak / 2**30:.3f} GiB")
+    del tks, mixed
+    torch.cuda.empty_cache()
 
 
 def _in_chunks(fn, args, rows, dim, chunk=16384):
@@ -450,6 +513,32 @@ def phase_dispatchers(device, rows=ROOFLINE_ROWS, nz=ROOFLINE_NZ, nzen=N_ZEN, re
     del ir, multi, single
     sync(device)
 
+    # 12 zenith angles: two launches of at most 8, joined along the zenith
+    # axis. 6 of the 12 nodes can meet the lam^2 = 1/u0^2 resonance of the
+    # solar source (a fault of the reference's formulation): (zenith, row)
+    # pairs with a layer within 1e-4 of it, relative, amplify roundoff in
+    # kernel and twin alike; they are counted and must be finite, and all
+    # the others are held to the twin as above
+    ang12, _ = eqns.zenith_angles_and_weights(12)
+    u0s12 = torch.tensor(np.cos(ang12 * np.pi / 180.0), device=device)
+    n = twostream_cuda.two_stream_solar_multi_auto.launches
+    multi = twostream_cuda.two_stream_solar_multi_auto(tau, w0, gt, u0s12, rs)
+    sync(device)
+    if twostream_cuda.two_stream_solar_multi_auto.launches - n != 2:
+        raise AssertionError("12 zenith angles did not take two launches")
+    twin = _in_chunks(lambda a, b, c, d: twostream.two_stream_solar_multi(a, b, c, u0s12, d),
+                      (tau, w0, gt, rs), rows, (1, 1, 1, 1))
+    near = resonance_distance(w0, gt, u0s12) < 1e-4
+    if not all(bool(torch.isfinite(x).all()) for x in multi):
+        raise AssertionError("non-finite output of the multi-zenith kernel at 12 zenith angles")
+    worst = max(float(((g - w).abs() / w.abs().clamp(min=1e-300))[near].max())
+                for g, w in zip(multi, twin)) if bool(near.any()) else 0.0
+    print(f"  12 zenith angles: {int(near.sum())} of {near.numel()} (zenith, row) pairs "
+          f"within 1e-4 of the resonance, largest relative deviation there {worst:.3e}")
+    compare("two_stream_solar_multi", [g[~near] for g in multi], [w[~near] for w in twin])
+    del multi, twin
+    torch.cuda.empty_cache()
+
     timed = {
         "two_stream_ir": (lambda: twostream_cuda.two_stream_ir_auto(tau, w0, gt, emis, True, 1e-6, bpl),
                           lambda: twostream.two_stream_ir(tau, w0, gt, emis, True, 1e-6, bpl)),
@@ -474,6 +563,17 @@ def phase_dispatchers(device, rows=ROOFLINE_ROWS, nz=ROOFLINE_NZ, nzen=N_ZEN, re
         print(f"  {name}: kernel {r['ms']:.3f} ms, twin {r['plain_ms']:.3f} ms, "
               f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
     return launches
+
+
+def resonance_distance(w0, gt, u0s):
+    """(nzen, rows): the least |lam^2 - 1/u0^2| * u0^2 over each row's layers,
+    lam of the delta-scaled layer (the solar source divides by lam^2 - 1/u0^2)."""
+    g2 = gt * gt
+    w0s, gs = w0 * (1.0 - g2) / (1.0 - w0 * g2), gt / (1.0 + gt)
+    gam1 = 3.0**0.5 * (2.0 - w0s * (1.0 + gs)) / 2.0
+    gam2 = 3.0**0.5 * w0s * (1.0 - gs) / 2.0
+    lam2 = gam1 * gam1 - gam2 * gam2
+    return torch.stack([((lam2 - 1.0 / u**2).abs() * u**2).amin(dim=1) for u in u0s])
 
 
 def bench_inputs(sp, B, nz, device, seed=0):
@@ -621,9 +721,12 @@ def phase_radtran_path(device, B=B_COLS, K=K_INNER, nz_template=NZ_TEMPLATE, rep
     if busy == 0.0:
         print("  profiler: no device time recorded (not measured)")
     else:
-        groups = {"RORR": "rorr_chain", "two-stream": "twostream"}
-        shares = {g: sum(ms for name, ms in times.items() if key in name) for g, key in groups.items()}
+        groups = {"RORR": ("rorr_chain",), "two-stream": ("twostream", "solar_weighted_kernel")}
+        shares = {g: sum(ms for name, ms in times.items() if any(k in name for k in keys))
+                  for g, keys in groups.items()}
         shares["other"] = busy - sum(shares.values())
+        shares["of which weighted solar"] = sum(ms for name, ms in times.items()
+                                                if "solar_weighted_kernel" in name)
         print(f"  profiler, one batch: device busy {busy:.3f} ms in {len(times)} kernel "
               f"names; " + ", ".join(f"{g} {ms:.3f} ms ({100 * ms / busy:.1f} %)"
                                      for g, ms in shares.items()))

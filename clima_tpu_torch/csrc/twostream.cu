@@ -1,13 +1,11 @@
 // Toon et al. (1989) two-stream solves for Hopper (sm_90a), float and double:
 // weight-fused (the gauss and zenith sums done in the kernel) and unreduced
-// (every row's edge fluxes written out).
+// (every row's edge fluxes written out). Two kernels live here.
 //
-// Replaces the JAX package's Pallas TPU kernels
+// 1. The row template (twostream_kernel) replaces the JAX package's Pallas
+//    TPU kernels
 //   clima_tpu/ops/pallas_twostream.py::two_stream_ir_weighted_pallas
 //     (_ir_weighted_kernel): hemispheric-mean IR, linear-in-tau Planck source
-//   clima_tpu/ops/pallas_twostream.py::two_stream_solar_multi_weighted_pallas
-//     (_solar_multi_weighted_kernel): delta-Eddington quadrature solar, all
-//     zenith angles through one elimination, amean optional
 //   clima_tpu/ops/pallas_twostream.py::two_stream_ir_pallas (_ir_kernel):
 //     IR per row, unreduced
 //   clima_tpu/ops/pallas_twostream.py::two_stream_solar_multi_pallas
@@ -15,31 +13,38 @@
 //     surface radiance
 //   clima_tpu/ops/pallas_twostream.py::two_stream_solar_pallas
 //     (_solar_kernel): single-zenith solar, one zenith cosine per row
-// and computes what clima_tpu/ops/twostream.py computes for them.
+// 2. The weighted solar kernel (solar_weighted_kernel, designed below the
+//    template) replaces
+//   clima_tpu/ops/pallas_twostream.py::two_stream_solar_multi_weighted_pallas
+//     (_solar_multi_weighted_kernel): delta-Eddington quadrature solar for
+//     any number of zenith angles, zenith- and gauss-weighted, amean optional
+// Both compute what clima_tpu/ops/twostream.py computes for them.
 //
-// Design. One thread owns one (column, bin, gauss point) row and solves its
-// 2nz system by 2x2-block Thomas elimination (never scalar Thomas: scalar
-// pivots vanish in optically thin layers; the 2x2 blocks stay well
+// Template design. One thread owns one (column, bin, gauss point) row and
+// solves its 2nz system by 2x2-block Thomas elimination (never scalar Thomas:
+// scalar pivots vanish in optically thin layers; the 2x2 blocks stay well
 // conditioned). Block row k couples u_{k-1}[1] through L01 and u_{k+1}[0]
 // through U10, so the forward sweep only changes M00 and f0, and each block
 // leaves p = inv(M') f' and q = inv(M')[:, 1] * U10 for the back
 // substitution u_k = p_k - q_k * u_{k+1}[0]. The matrix is zenith independent:
-// q is shared and only p is carried per zenith right-hand side.
+// q is shared and only p is carried per zenith right-hand side (NR of them in
+// registers, so one launch takes at most 8 zenith angles).
 //   pass 1  forward: layer coefficients, elimination, p and q to scratch
 //   pass 2  backward: u_k overwrites p_k in scratch
 //   pass 3  forward: recompute the layer coefficients (bit-identical to
-//           pass 1) and rebuild the edge fluxes. Weighted (REDUCE): sum the
-//           zenith angles in registers and the nG rows of a gauss group in
-//           shared memory in a fixed order; a block holds whole gauss groups;
-//           no atomics, so results repeat bit for bit. Unreduced: each thread
-//           stores its own row's edges (and the surface radiance), per zenith.
+//           pass 1) and rebuild the edge fluxes. Weighted (the IR instance):
+//           sum the nG rows of a gauss group in shared memory in a fixed
+//           order; a block holds whole gauss groups; no atomics, so results
+//           repeat bit for bit. Unreduced: each thread stores its own row's
+//           edges (and the surface radiance), per zenith.
 // Scratch is laid out (nz, values, rows), rows fastest, so its accesses are
 // coalesced. What bounds it: the per-thread sequential recurrence over nz
-// (latency of dependent double-precision divides and exps) and, at the
-// flagship shapes, the strided (rows, nz) reads of tau/w0/g; recomputing
-// the coefficients in pass 3 trades cheap arithmetic for not storing them.
-// The unreduced stores are strided too (a thread writes one (rows, nz+1)
-// row), so they are not coalesced; that is left as it is for now.
+// (latency of dependent double-precision divides and exps) at low occupancy
+// (one thread per row), and, at the flagship shapes, the strided (rows, nz)
+// reads of tau/w0/g; recomputing the coefficients in pass 3 trades cheap
+// arithmetic for not storing them. The unreduced stores are strided too (a
+// thread writes one (rows, nz+1) row), so they are not coalesced; that is left
+// as it is for now.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -167,29 +172,27 @@ __device__ __forceinline__ void reduce_store(T* sm, const T* v, bool lead, const
   __syncthreads();
 }
 
-// REDUCE: outputs (rows/nG, nz+1), zenith- and gauss-weighted.
+// REDUCE (IR only): outputs (rows/nG, nz+1), gauss-weighted.
 // !REDUCE: outputs (nzen, rows, nz+1) (IR: (rows, nz+1)); out_srad (nzen, rows).
 // ROW: one zenith cosine per row, u0s_g (rows,), NR = 1.
 template <typename T, bool SOLAR, bool AMEAN, int NR, bool REDUCE, bool ROW>
 __global__ void twostream_kernel(
     const T* __restrict__ tau, const T* __restrict__ w0, const T* __restrict__ gt,
     const T* __restrict__ surf, const T* __restrict__ bpl, const T* __restrict__ u0s_g,
-    const T* __restrict__ zw_g, int nzen, const T* __restrict__ wbin_g, int nG,
+    int nzen, const T* __restrict__ wbin_g, int nG,
     int64_t rows, int nz, int hard, T tau_min, T* __restrict__ scratch,
     T* __restrict__ out_am, T* __restrict__ out_fup, T* __restrict__ out_fdn,
     T* __restrict__ out_srad) {
+  static_assert(!(SOLAR && REDUCE), "the weighted solar solve is solar_weighted_kernel");
   constexpr int NOUT = AMEAN ? 3 : 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);  // NOUT * blockDim (REDUCE only)
-  __shared__ T u0s[NR], zw[NR], wbin[REDUCE ? 1024 : 1];
+  __shared__ T u0s[NR], wbin[REDUCE ? 1024 : 1];
   const int nrhs = SOLAR ? nzen : 1;
   if constexpr (REDUCE) {
     for (int i = threadIdx.x; i < nG; i += blockDim.x) wbin[i] = wbin_g[i];
   }
-  if (SOLAR && !ROW && threadIdx.x < nzen) {
-    u0s[threadIdx.x] = u0s_g[threadIdx.x];
-    if (REDUCE) zw[threadIdx.x] = zw_g[threadIdx.x];
-  }
+  if (SOLAR && !ROW && threadIdx.x < nzen) u0s[threadIdx.x] = u0s_g[threadIdx.x];
   __syncthreads();
 
   const int64_t row = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -334,28 +337,16 @@ __global__ void twostream_kernel(
             T am_b = (T(1) / u1) * (y1 * (c.e1 + c.e3) + y2 * (c.e2 + c.e4) + c.cpb[r]
                                     + c.cmb[r])
                      + c.dir_b[r] / u0;
-            if constexpr (REDUCE) {
-              T wz = zw[r];
-              top[0] += wz * fup_t;
-              top[1] += wz * dir_t;
-              bot[0] += wz * fup_b;
-              bot[1] += wz * (fdn_b + c.dir_b[r]);
-              if (AMEAN) {
-                top[NOUT - 1] += wz * am_t;
-                bot[NOUT - 1] += wz * am_b;
-              }
-            } else {
-              const int64_t base = (int64_t(r) * rows + row) * ne;
-              if (k == 0) {
-                out_fup[base] = fup_t;
-                out_fdn[base] = dir_t;
-                out_am[base] = am_t;
-              }
-              out_fup[base + k + 1] = fup_b;
-              out_fdn[base + k + 1] = fdn_b + c.dir_b[r];
-              out_am[base + k + 1] = am_b;
-              if (k == nz - 1) out_srad[int64_t(r) * rows + row] = fdn_b / u1 + exp(-tauc / u0);
+            const int64_t base = (int64_t(r) * rows + row) * ne;
+            if (k == 0) {
+              out_fup[base] = fup_t;
+              out_fdn[base] = dir_t;
+              out_am[base] = am_t;
             }
+            out_fup[base + k + 1] = fup_b;
+            out_fdn[base + k + 1] = fdn_b + c.dir_b[r];
+            out_am[base + k + 1] = am_b;
+            if (k == nz - 1) out_srad[int64_t(r) * rows + row] = fdn_b / u1 + exp(-tauc / u0);
           } else if constexpr (REDUCE) {
             top[0] = fup_t;
             bot[0] = fup_b;
@@ -381,7 +372,7 @@ __global__ void twostream_kernel(
 
 template <typename T, bool SOLAR, bool AMEAN, int NR, bool REDUCE, bool ROW>
 int launch(const void* tau, const void* w0, const void* gt, const void* surf,
-           const void* bpl, const void* u0s, const void* zw, int nzen, const void* wbin,
+           const void* bpl, const void* u0s, int nzen, const void* wbin,
            int nG, long long rows, int nz, int hard, double tau_min, void* scratch,
            void* out_am, void* out_fup, void* out_fdn, void* out_srad, cudaStream_t stream) {
   constexpr int NOUT = AMEAN ? 3 : 2;
@@ -399,8 +390,309 @@ int launch(const void* tau, const void* w0, const void* gt, const void* surf,
   twostream_kernel<T, SOLAR, AMEAN, NR, REDUCE, ROW><<<dim3(unsigned(blocks)), threads, smem,
                                                        stream>>>(
       (const T*)tau, (const T*)w0, (const T*)gt, (const T*)surf, (const T*)bpl,
-      (const T*)u0s, (const T*)zw, nzen, (const T*)wbin, nG, rows, nz, hard, T(tau_min),
+      (const T*)u0s, nzen, (const T*)wbin, nG, rows, nz, hard, T(tau_min),
       (T*)scratch, (T*)out_am, (T*)out_fup, (T*)out_fdn, (T*)out_srad);
+  return int(cudaGetLastError());
+}
+
+// ---- The weighted multi-zenith solar kernel ----
+//
+// Replaces clima_tpu/ops/pallas_twostream.py::two_stream_solar_multi_weighted_pallas
+// (_solar_multi_weighted_kernel) and computes what ops/twostream.py's
+// two_stream_solar_multi_weighted computes: the solar solve for every zenith
+// angle, summed over the zeniths with zw and over each gauss group with wbin.
+//
+// What held the template back for this solve (one thread per row carrying NR
+// zenith right-hand sides): few threads with many registers each (177 in
+// float64 at NR = 4), each running a chain of dependent double-precision
+// exps and divides per layer at low occupancy; three passes over scratch in
+// device memory (p and q written, p rewritten as u, u read again); and at
+// most 8 zenith angles per launch.
+//
+// Design. One thread owns one (row, zenith) pair, zenith fastest; a block holds
+// whole gauss groups with all their zeniths (nG * nzen threads per group,
+// several groups per block up to ~128 threads). Each thread computes the
+// zenith-independent part of a layer itself (delta scaling, lam, cap_gam,
+// e1-e4, repeated across a row's zeniths) and runs the template's 2x2-block
+// Thomas elimination with one right-hand side, unchanged in its operations:
+// a thread holds one zenith (~104 registers in float64) whatever nzen is, and
+// nzen is a run-time value.
+//   forward: layer coefficients and elimination, top to bottom, the next
+//            layer's inputs read one layer ahead. The row's zenith-0 thread
+//            stores q and the running tauc of each layer, every thread its p.
+//   backward (after one block barrier, bottom to top, scratch and inputs read
+//            one layer ahead): u_k = p_k - q_k * u_{k+1}[0], the layer's
+//            coefficients recomputed from the stored tauc (bit-identical to
+//            the forward's), and its edge fluxes (the lower edge, at the top
+//            layer also the upper) put in shared memory. Every 16 edges (fewer
+//            where the block's values would pass 48 KB), between two block
+//            barriers, one thread per (gauss group, edge, output) sums the
+//            group's zeniths in order with zw for each gauss row, then the
+//            gauss rows in order with wbin: the order of the template's
+//            reduction, without atomics, so results repeat bit for bit.
+// Scratch: q (nz, 2, rows), tauc (nz, rows) and p (nz, 2, rows * nzen), each
+// written once and read once, coalesced in the thread order. What bounds it:
+// the latency of each thread's chain of double-precision divides, sqrt and
+// exps (about 2 of every 5 instructions the zenith-independent part), at ~16
+// resident warps per SM, with the scratch traffic under it. Threads of one
+// warp hold different zeniths, so anything that branches on u0 splits the
+// warp: source_quot keeps the underflowed sources off the division's slow
+// path.
+
+// x / d where x may be zero: deep in the column exp(-tauc/u0) underflows to
+// zero at the small zenith cosines first, and a zero numerator sends the
+// division down its slow path, which splits a warp whose threads hold
+// different zeniths. A zero x gets the signed zero IEEE division gives it
+// without dividing; any other x is divided as usual.
+template <typename T>
+__device__ __forceinline__ T source_quot(T x, T d) {
+  const bool zero = x == T(0) && d != T(0);
+  const T q = (zero ? T(1) : x) / d;
+  return zero ? (signbit(d) ? -x : x) : q;
+}
+
+// One zenith's layer coefficients: solar_layer's arithmetic with one zenith
+// cosine, the source quotients through source_quot.
+template <typename T>
+__device__ __forceinline__ void solar_layer_1(T tau_in, T w0_in, T gt_in, T tauc, T u0,
+                                              Layer<T, 1>& c) {
+  const T s3 = T(kSqrt3);
+  T gg = gt_in * gt_in;
+  T tau = tau_in * (T(1) - w0_in * gg);
+  T w0 = w0_in * (T(1) - gg) / (T(1) - w0_in * gg);
+  T gt = gt_in / (T(1) + gt_in);
+  T gam1 = s3 * (T(2) - w0 * (T(1) + gt)) / T(2);
+  T gam2 = s3 * w0 * (T(1) - gt) / T(2);
+  T lam = sqrt(gam1 * gam1 - gam2 * gam2);
+  T cap_gam = gam2 / (gam1 + lam);
+  set_es(lam, cap_gam, tau, c);
+  c.tau = tau;
+  T inv_u0 = T(1) / u0;
+  T gam3 = (T(1) - s3 * gt * u0) / T(2);
+  T gam4 = T(1) - gam3;
+  T facp = w0 * ((gam1 - inv_u0) * gam3 + gam4 * gam2);
+  T facm = w0 * ((gam1 + inv_u0) * gam4 + gam2 * gam3);
+  T et0 = exp(-tauc / u0);
+  T etb = et0 * exp(-tau / u0);
+  T denom = lam * lam - inv_u0 * inv_u0;
+  c.cp0[0] = source_quot(et0 * facp, denom);
+  c.cpb[0] = source_quot(etb * facp, denom);
+  c.cm0[0] = source_quot(et0 * facm, denom);
+  c.cmb[0] = source_quot(etb * facm, denom);
+  c.dir_b[0] = u0 * etb;
+}
+
+// The weighted sums of a chunk of ne edges (descending from edge j0): one
+// (gauss group, edge, output) item per thread, each summing its group's
+// zeniths in order with zw for every gauss row, then the gauss rows in
+// order with wbin. vals holds (NOUT, slots, blockDim) per-thread values.
+template <typename T, int NOUT>
+__device__ __forceinline__ void reduce_edges(const T* vals, int slots, int ne, int j0,
+                                             const T* zw, const T* wbin, int nzen, int nG,
+                                             int64_t grp0, int64_t groups, int nz, T* out_fup,
+                                             T* out_fdn, T* out_am) {
+  const int bd = blockDim.x, gpb = bd / (nG * nzen);
+  for (int it = threadIdx.x; it < gpb * ne * NOUT; it += bd) {
+    const int gl = it / (ne * NOUT), e = (it / NOUT) % ne, o = it % NOUT;
+    if (grp0 + gl >= groups) continue;
+    const T* v = vals + (o * slots + e) * bd + gl * nG * nzen;
+    T s = T(0);
+    for (int g = 0; g < nG; ++g) {
+      T acc = T(0);
+      for (int r = 0; r < nzen; ++r) acc += zw[r] * v[g * nzen + r];
+      s += wbin[g] * acc;
+    }
+    T* out = o == 0 ? out_fup : (o == 1 ? out_fdn : out_am);
+    out[(grp0 + gl) * (nz + 1) + (j0 - e)] = s;
+  }
+}
+
+// outputs (rows/nG, nz+1) each: fup, fdn and (AMEAN) amean, weighted.
+// Dynamic shared memory: zw (nzen), wbin (nG), vals (NOUT, E + 1, blockDim).
+template <typename T, bool AMEAN>
+__global__ void solar_weighted_kernel(
+    const T* __restrict__ tau, const T* __restrict__ w0, const T* __restrict__ gt,
+    const T* __restrict__ surf, const T* __restrict__ u0s, const T* __restrict__ zw_g,
+    int nzen, const T* __restrict__ wbin_g, int nG, int64_t rows, int nz, int E,
+    T* __restrict__ q_s, T* __restrict__ tauc_s, T* __restrict__ p_s,
+    T* __restrict__ out_am, T* __restrict__ out_fup, T* __restrict__ out_fdn) {
+  constexpr int NOUT = AMEAN ? 3 : 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int bd = blockDim.x, tid = threadIdx.x, slots = E + 1;
+  T* zw = reinterpret_cast<T*>(smem_raw);
+  T* wbin = zw + nzen;
+  T* vals = wbin + nG;
+  for (int i = tid; i < nzen; i += bd) zw[i] = zw_g[i];
+  for (int i = tid; i < nG; i += bd) wbin[i] = wbin_g[i];
+  __syncthreads();
+
+  const int z = tid % nzen, rpb = bd / nzen;
+  const int64_t row = int64_t(blockIdx.x) * rpb + tid / nzen;
+  const bool active = row < rows;
+  const int64_t np = rows * nzen, pc = row * nzen + z;  // p's columns; this thread's
+  const T u0 = u0s[z];
+  const T u1 = T(1) / T(kSqrt3);
+  const T* tau_r = tau + row * nz;
+  const T* w0_r = w0 + row * nz;
+  const T* gt_r = gt + row * nz;
+
+  // ---- forward: elimination; q and tauc per (layer, row), p per thread ----
+  if (active) {
+    const T Rs = surf[row];
+    Layer<T, 1> cur, nxt;
+    T tauc = T(0);
+    solar_layer_1(tau_r[0], w0_r[0], gt_r[0], tauc, u0, cur);
+    if (z == 0) tauc_s[row] = tauc;
+    T Aev = T(0), Bev = cur.e1, Dev = -cur.e2, Eev = -cur.cm0[0];
+    T p1prev = T(0), q1prev = T(0);
+    T ta = T(0), wa = T(0), ga = T(0);  // the inputs of layer k + 1
+    if (nz > 1) { ta = tau_r[1]; wa = w0_r[1]; ga = gt_r[1]; }
+    for (int k = 0; k < nz; ++k) {
+      T Aod, Bod, Dod, Eod, nAev = T(0), nBev = T(0), nDev = T(0), nEev = T(0);
+      if (k < nz - 1) {
+        const T tk = ta, wk = wa, gk = ga;
+        if (k + 2 < nz) { ta = tau_r[k + 2]; wa = w0_r[k + 2]; ga = gt_r[k + 2]; }
+        tauc += cur.tau;
+        solar_layer_1(tk, wk, gk, tauc, u0, nxt);
+        if (z == 0) tauc_s[int64_t(k + 1) * rows + row] = tauc;
+        Aod = nxt.e2 * cur.e1 - cur.e3 * nxt.e4;
+        Bod = cur.e2 * nxt.e2 - cur.e4 * nxt.e4;
+        Dod = nxt.e1 * nxt.e4 - nxt.e2 * nxt.e3;
+        nAev = cur.e2 * cur.e3 - cur.e4 * cur.e1;
+        nBev = cur.e1 * nxt.e1 - cur.e3 * nxt.e3;
+        nDev = cur.e3 * nxt.e4 - cur.e1 * nxt.e2;
+        Eod = nxt.e2 * (nxt.cp0[0] - cur.cpb[0]) - nxt.e4 * (nxt.cm0[0] - cur.cmb[0]);
+        nEev = cur.e3 * (nxt.cp0[0] - cur.cpb[0]) + cur.e1 * (cur.cmb[0] - nxt.cm0[0]);
+      } else {
+        Aod = cur.e1 - Rs * cur.e3;
+        Bod = cur.e2 - Rs * cur.e4;
+        Dod = T(0);
+        T Ss = Rs * cur.dir_b[0];
+        Eod = Ss - cur.cpb[0] + Rs * cur.cmb[0];
+      }
+      // block k: M = [[Bev, Dev], [Aod, Bod]], L01 = Aev, U10 = Dod
+      T M00 = Bev - Aev * q1prev;
+      T inv_det = T(1) / (M00 * Bod - Dev * Aod);
+      T X00 = Bod * inv_det, X01 = -Dev * inv_det;
+      T X10 = -Aod * inv_det, X11 = M00 * inv_det;
+      q1prev = X11 * Dod;
+      if (z == 0) {
+        q_s[int64_t(2 * k) * rows + row] = X01 * Dod;
+        q_s[int64_t(2 * k + 1) * rows + row] = q1prev;
+      }
+      T f0 = Eev - Aev * p1prev;
+      T p0 = X00 * f0 + X01 * Eod;
+      p1prev = X10 * f0 + X11 * Eod;
+      p_s[int64_t(2 * k) * np + pc] = p0;
+      p_s[int64_t(2 * k + 1) * np + pc] = p1prev;
+      cur = nxt;
+      Aev = nAev; Bev = nBev; Dev = nDev; Eev = nEev;
+    }
+  }
+  __syncthreads();  // the row's q and tauc, stored by its zenith-0 thread
+
+  // ---- backward: back substitution, edge fluxes and their reduction ----
+  const int64_t groups = rows / nG, grp0 = int64_t(blockIdx.x) * (bd / (nG * nzen));
+  // the layer's inputs and scratch, read one layer ahead
+  T pa = T(0), pb = T(0), qa = T(0), qb = T(0), tca = T(0), ta = T(0), wa = T(0), ga = T(0);
+  auto fetch = [&](int k) {
+    pa = p_s[int64_t(2 * k) * np + pc];
+    pb = p_s[int64_t(2 * k + 1) * np + pc];
+    qa = q_s[int64_t(2 * k) * rows + row];
+    qb = q_s[int64_t(2 * k + 1) * rows + row];
+    tca = tauc_s[int64_t(k) * rows + row];
+    ta = tau_r[k]; wa = w0_r[k]; ga = gt_r[k];
+  };
+  if (active) fetch(nz - 1);
+  T unext = T(0);
+  int slot = 0, j0 = nz;
+  for (int k = nz - 1; k >= 0; --k) {
+    T top[NOUT], bot[NOUT];
+#pragma unroll
+    for (int o = 0; o < NOUT; ++o) { top[o] = T(0); bot[o] = T(0); }
+    if (active) {
+      const T p0 = pa, p1 = pb, q0 = qa, q1 = qb, tck = tca, tk = ta, wk = wa, gk = ga;
+      if (k > 0) fetch(k - 1);
+      T y1 = p0 - q0 * unext;
+      T y2 = p1 - q1 * unext;
+      unext = y1;
+      Layer<T, 1> c;
+      solar_layer_1(tk, wk, gk, tck, u0, c);
+      T dir_t = u0;  // u0 * Fs_pi, Fs_pi = 1
+      T fup_t = y1 * c.e3 - y2 * c.e4 + c.cp0[0];
+      T fup_b = y1 * c.e1 + y2 * c.e2 + c.cpb[0];
+      T fdn_b = y1 * c.e3 + y2 * c.e4 + c.cmb[0];
+      top[0] = fup_t;
+      top[1] = dir_t;
+      bot[0] = fup_b;
+      bot[1] = fdn_b + c.dir_b[0];
+      if constexpr (AMEAN) {
+        top[2] = (T(1) / u1) * fup_t + dir_t / u0;
+        bot[2] = (T(1) / u1) * (y1 * (c.e1 + c.e3) + y2 * (c.e2 + c.e4) + c.cpb[0] + c.cmb[0])
+                 + source_quot(c.dir_b[0], u0);
+      }
+    }
+#pragma unroll
+    for (int o = 0; o < NOUT; ++o) vals[(o * slots + slot) * bd + tid] = bot[o];
+    ++slot;
+    if (k == 0) {
+#pragma unroll
+      for (int o = 0; o < NOUT; ++o) vals[(o * slots + slot) * bd + tid] = top[o];
+      ++slot;
+    }
+    if (slot >= E || k == 0) {  // the same at every thread
+      __syncthreads();
+      reduce_edges<T, NOUT>(vals, slots, slot, j0, zw, wbin, nzen, nG, grp0, groups, nz,
+                            out_fup, out_fdn, out_am);
+      __syncthreads();
+      j0 -= slot;
+      slot = 0;
+    }
+  }
+}
+
+constexpr int kSolarThreads = 128;  // threads a block aims at (whole gauss groups)
+constexpr int kSolarEdges = 16;     // edges reduced per pair of block barriers, at most
+
+template <typename T, bool AMEAN>
+int solar_max_group() {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, solar_weighted_kernel<T, AMEAN>);
+  return err == cudaSuccess ? attr.maxThreadsPerBlock : -int(err);
+}
+
+// scratch: q (nz, 2, rows), then tauc (nz, rows), then p (nz, 2, rows*nzen)
+template <typename T, bool AMEAN>
+int launch_solar_weighted(const void* tau, const void* w0, const void* gt, const void* surf,
+                          const void* u0s, const void* zw, int nzen, const void* wbin, int nG,
+                          long long rows, int nz, void* scratch, void* out_am, void* out_fup,
+                          void* out_fdn, cudaStream_t stream) {
+  constexpr int NOUT = AMEAN ? 3 : 2;
+  const int group = nG * nzen;
+  const int max_group = solar_max_group<T, AMEAN>();
+  if (max_group < 0) return -max_group;
+  if (nzen < 1 || group > max_group) return int(cudaErrorInvalidConfiguration);
+  int per = kSolarThreads / group;
+  if (per < 1) per = 1;
+  const int threads = per * group;
+  const long long blocks = (rows / nG + per - 1) / per;
+  // edges per reduction: as many as fit beside the block in 48 KB, 1 to kSolarEdges
+  const size_t per_slot = size_t(NOUT) * threads * sizeof(T);
+  int E = int((48 * 1024 - size_t(nzen + nG) * sizeof(T)) / per_slot) - 1;
+  E = E < 1 ? 1 : (E > kSolarEdges ? kSolarEdges : E);
+  const size_t smem = size_t(nzen + nG) * sizeof(T) + (E + 1) * per_slot;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(solar_weighted_kernel<T, AMEAN>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           int(smem));
+    if (err != cudaSuccess) return int(err);
+  }
+  T* q = (T*)scratch;
+  T* tauc = q + 2LL * nz * rows;
+  T* p = tauc + 1LL * nz * rows;
+  solar_weighted_kernel<T, AMEAN><<<dim3(unsigned(blocks)), threads, smem, stream>>>(
+      (const T*)tau, (const T*)w0, (const T*)gt, (const T*)surf, (const T*)u0s, (const T*)zw,
+      nzen, (const T*)wbin, nG, rows, nz, E, q, tauc, p, (T*)out_am, (T*)out_fup, (T*)out_fdn);
   return int(cudaGetLastError());
 }
 
@@ -410,16 +702,15 @@ int dispatch_weighted(int solar, int with_amean, const void* tau, const void* w0
                       const void* zw, int nzen, const void* wbin, int nG, long long rows,
                       int nz, int hard, double tau_min, void* scratch, void* out_am,
                       void* out_fup, void* out_fdn, cudaStream_t s) {
-#define CLIMA_ARGS tau, w0, gt, surf, bpl, u0s, zw, nzen, wbin, nG, rows, nz, hard, tau_min, \
-                   scratch, out_am, out_fup, out_fdn, nullptr, s
-  if (!solar) return launch<T, false, false, 1, true, false>(CLIMA_ARGS);
-  if (nzen <= 4) {
-    if (with_amean) return launch<T, true, true, 4, true, false>(CLIMA_ARGS);
-    return launch<T, true, false, 4, true, false>(CLIMA_ARGS);
-  }
-  if (with_amean) return launch<T, true, true, 8, true, false>(CLIMA_ARGS);
-  return launch<T, true, false, 8, true, false>(CLIMA_ARGS);
-#undef CLIMA_ARGS
+  if (!solar)
+    return launch<T, false, false, 1, true, false>(tau, w0, gt, surf, bpl, nullptr, 1, wbin, nG,
+                                                   rows, nz, hard, tau_min, scratch, nullptr,
+                                                   out_fup, out_fdn, nullptr, s);
+  if (with_amean)
+    return launch_solar_weighted<T, true>(tau, w0, gt, surf, u0s, zw, nzen, wbin, nG, rows, nz,
+                                          scratch, out_am, out_fup, out_fdn, s);
+  return launch_solar_weighted<T, false>(tau, w0, gt, surf, u0s, zw, nzen, wbin, nG, rows, nz,
+                                         scratch, out_am, out_fup, out_fdn, s);
 }
 
 template <typename T>
@@ -427,8 +718,8 @@ int dispatch_rows(int solar, int u0_per_row, const void* tau, const void* w0, co
                   const void* surf, const void* bpl, const void* u0, int nzen, long long rows,
                   int nz, int hard, double tau_min, void* scratch, void* out_am, void* out_fup,
                   void* out_fdn, void* out_srad, cudaStream_t s) {
-#define CLIMA_ARGS tau, w0, gt, surf, bpl, u0, nullptr, nzen, nullptr, 1, rows, nz, hard, \
-                   tau_min, scratch, out_am, out_fup, out_fdn, out_srad, s
+#define CLIMA_ARGS tau, w0, gt, surf, bpl, u0, nzen, nullptr, 1, rows, nz, hard, tau_min, \
+                   scratch, out_am, out_fup, out_fdn, out_srad, s
   if (!solar) return launch<T, false, false, 1, false, false>(CLIMA_ARGS);
   if (u0_per_row) return launch<T, true, true, 1, false, true>(CLIMA_ARGS);
   if (nzen < 1 || nzen > 8) return int(cudaErrorInvalidValue);
@@ -443,10 +734,10 @@ int dispatch_rows(int solar, int u0_per_row, const void* tau, const void* w0, co
 // tau/w0/gt (rows, nz), surf (rows,) emissivity (IR) or albedo (solar),
 // bpl (rows, nz+1) (IR only). Each returns the launch's cudaError_t.
 
-// Weighted: u0s/zw (nzen,) (solar only), wbin (nG,), scratch
-// (nz, 2 + 2*nrhs, rows) with nrhs = 4 if nzen <= 4 else 8 (solar) or 1 (IR),
-// outputs (rows/nG, nz+1). Requires rows % nG == 0, 1 <= nG <= 1024, nz >= 1,
-// 1 <= nzen <= 8.
+// Weighted: u0s/zw (nzen,) (solar only), wbin (nG,), outputs (rows/nG, nz+1).
+// Scratch: IR (nz, 4, rows); solar nz * rows * (3 + 2*nzen) values (q, tauc,
+// p). Requires rows % nG == 0, 1 <= nG <= 1024, nz >= 1 and, for solar,
+// nG * nzen <= clima_twostream_solar_max_group(...).
 extern "C" int clima_twostream_weighted(int is_f64, int solar, int with_amean,
                                         const void* tau, const void* w0, const void* gt,
                                         const void* surf, const void* bpl, const void* u0s,
@@ -462,6 +753,15 @@ extern "C" int clima_twostream_weighted(int is_f64, int solar, int with_amean,
   return dispatch_weighted<float>(solar, with_amean, tau, w0, gt, surf, bpl, u0s, zw, nzen,
                                   wbin, nG, rows, nz, hard, tau_min, scratch, out_am, out_fup,
                                   out_fdn, s);
+}
+
+// The largest gauss group times zenith count (threads) one launch of the
+// weighted solar kernel takes on this device (its registers bound it), or a
+// negated cudaError_t.
+extern "C" int clima_twostream_solar_max_group(int is_f64, int with_amean) {
+  if (is_f64)
+    return with_amean ? solar_max_group<double, true>() : solar_max_group<double, false>();
+  return with_amean ? solar_max_group<float, true>() : solar_max_group<float, false>();
 }
 
 // Unreduced: u0 (nzen,) shared, or (rows,) with u0_per_row (then nzen = 1);

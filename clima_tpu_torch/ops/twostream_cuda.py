@@ -11,12 +11,17 @@ the plain PyTorch twin (:mod:`.twostream`, the same math as the JAX package's
 XLA path, solved by block PCR) for tensors on the CPU, and launches the kernel
 for tensors on a CUDA device; there is no fallback between the two.
 
-What bounds the kernels on an H100, and what the design does about it, is
-described at the top of ``csrc/twostream.cu``: one thread per (column, bin,
-gauss) row runs a 2x2-block Thomas elimination down the column and back.
-The weighted kernels sum zeniths in registers and gauss points in shared
-memory, with no atomics, so the (rows, nz+1) per-row fluxes never reach
-device memory; the unreduced kernels store each row's fluxes.
+What bounds the kernels on an H100, and what the designs do about it, is
+described in ``csrc/twostream.cu``. Every kernel runs a 2x2-block Thomas
+elimination down each column and back. The weighted solar kernel gives each
+(row, zenith) pair a thread and fuses the back substitution with the edge
+fluxes, so it takes any number of zenith angles; the template behind the
+other four gives each (column, bin, gauss) row a thread, carrying up to 8
+zenith angles in registers (more run as groups of 8). The weighted kernels
+sum zeniths and gauss points in shared memory in a fixed order, with no
+atomics, so the (rows, nz+1) per-row fluxes never reach device memory; the
+unreduced kernels store each row's fluxes. :func:`solar_weighted_schedule_ref`
+is a plain model of the weighted solar kernel's schedule, for the tests.
 
 ``launches`` on each wrapper counts its kernel launches.
 """
@@ -29,11 +34,23 @@ from . import twostream as ts
 from .cuda_build import load_library
 
 __all__ = ["two_stream_ir_weighted_cuda", "two_stream_solar_multi_weighted_cuda",
-           "two_stream_ir_auto", "two_stream_solar_multi_auto", "two_stream_solar_auto"]
+           "two_stream_ir_auto", "two_stream_solar_multi_auto", "two_stream_solar_auto",
+           "solar_weighted_schedule_ref"]
 
 
 # zenith angles of one launch of the unreduced kernel (its largest instance)
 _ROWS_MAX_ZENITHS = 8
+_MAX_GROUP = {}  # (float64?, amean?) -> the weighted solar kernel's largest nG * nzen
+
+
+def _solar_max_group(is_f64, with_amean):
+    key = (bool(is_f64), bool(with_amean))
+    if key not in _MAX_GROUP:
+        n = load_library("twostream")["clima_twostream_solar_max_group"](*map(int, key))
+        if n <= 0:
+            raise RuntimeError(f"cannot read the solar kernel's attributes: CUDA error {-n}")
+        _MAX_GROUP[key] = n
+    return _MAX_GROUP[key]
 
 
 def _check(tensors, dtype, device):
@@ -56,11 +73,10 @@ def _launch(solar, with_amean, tau, w0, gt, surf, bpl, u0s, zw, wbin, hard, tau_
         raise ValueError("bplanck must be (rows, nz+1) and zw match u0s")
     if not (1 <= nG <= 1024) or rows % nG:
         raise ValueError(f"rows ({rows}) must be whole gauss groups of 1..1024 (nG={nG})")
-    if not 1 <= nzen <= 8:
-        raise ValueError(f"the solar kernel takes 1..8 zenith angles, not {nzen}")
-    nrhs = 1 if not solar else (4 if nzen <= 4 else 8)
     kw = dict(dtype=tau.dtype, device=tau.device)
-    scratch = torch.empty((nz, 2 + 2 * nrhs, rows), **kw)
+    # IR: the template's (nz, q0 q1 p0 p1, rows); solar: q (nz, 2, rows),
+    # tauc (nz, rows) and p (nz, 2, rows * nzen)
+    scratch = torch.empty(nz * rows * (3 + 2 * nzen) if solar else (nz, 4, rows), **kw)
     outs = [torch.empty((rows // nG, nz + 1), **kw) for _ in range(3 if with_amean else 2)]
     am = outs[2].data_ptr() if with_amean else None
     fn = load_library("twostream")["clima_twostream_weighted"]
@@ -107,7 +123,11 @@ def two_stream_solar_multi_weighted_cuda(tau, w0, gt, u0s, Rsfc, zw, wbin, with_
     tau/w0/gt (rows, nz) group-major, u0s/zw (nzen,), Rsfc (rows,), wbin
     (nG,). Returns (am_w, fup_w, fdn_w), each (groups, nz+1), TOA-down;
     am_w is None when ``with_amean`` is False (the kernel then skips it).
-    Twin: :func:`.twostream.two_stream_solar_multi_weighted`.
+    Any number of zenith angles: one launch takes nG * nzen threads per gauss
+    group up to the kernel's block size on the device (at most 1024); past
+    that, the zeniths run in groups whose weighted outputs are summed.
+    Twin: :func:`.twostream.two_stream_solar_multi_weighted`; plain model of
+    the kernel's schedule: :func:`solar_weighted_schedule_ref`.
     """
     if tau.device.type == "cpu":
         return ts.two_stream_solar_multi_weighted(tau, w0, gt, u0s, Rsfc, zw, wbin,
@@ -116,9 +136,19 @@ def two_stream_solar_multi_weighted_cuda(tau, w0, gt, u0s, Rsfc, zw, wbin, with_
         raise ValueError(f"no two-stream kernel for device {tau.device}")
     _check(dict(tau=tau, w0=w0, gt=gt, u0s=u0s, Rsfc=Rsfc, zw=zw, wbin=wbin),
            tau.dtype, tau.device)
-    out = _launch(True, with_amean, tau, w0, gt, Rsfc, None, u0s, zw, wbin, False, 0.0)
-    two_stream_solar_multi_weighted_cuda.launches += 1
-    return out
+    nG = wbin.shape[0]
+    max_group = _solar_max_group(tau.dtype == torch.float64, with_amean)
+    if nG > max_group:
+        raise ValueError(f"a gauss group of {nG} rows exceeds the solar kernel's block "
+                         f"({max_group} threads on this device)")
+
+    def launch(u0_group, zw_group):
+        out = _launch(True, with_amean, tau, w0, gt, Rsfc, None, u0_group, zw_group, wbin,
+                      False, 0.0)
+        two_stream_solar_multi_weighted_cuda.launches += 1
+        return out
+
+    return _zenith_groups(launch, u0s, max_group // nG, zw=zw)
 
 
 two_stream_solar_multi_weighted_cuda.launches = 0
@@ -159,14 +189,21 @@ def _launch_rows(solar, tau, w0, gt, surf, bpl, u0, u0_per_row, hard, tau_min):
     return am, srad, fup, fdn
 
 
-def _zenith_groups(solve, u0s, size=_ROWS_MAX_ZENITHS):
-    """``solve(u0s[i:i + size])`` over consecutive groups of at most ``size``
-    zenith cosines, each output joined along its leading (zenith) axis. Each
-    zenith's solve is independent of the others', so this is exact."""
-    outs = [solve(u0s[i:i + size]) for i in range(0, u0s.shape[0], size)]
-    if len(outs) == 1:
-        return outs[0]
-    return tuple(torch.cat(parts) for parts in zip(*outs))
+def _zenith_groups(solve, u0s, size=_ROWS_MAX_ZENITHS, zw=None):
+    """``solve`` over consecutive groups of at most ``size`` zenith angles.
+    Each zenith's solve is independent of the others', so this is exact:
+    per-zenith outputs (``zw`` None, ``solve(u0s_group)``) are joined along
+    their leading zenith axis; zenith-weighted ones (``solve(u0s_group,
+    zw_group)``) are summed, being linear in zw."""
+    groups = [slice(i, i + size) for i in range(0, u0s.shape[0], size)]
+    if zw is None:
+        outs = [solve(u0s[g]) for g in groups]
+        return outs[0] if len(outs) == 1 else tuple(torch.cat(parts) for parts in zip(*outs))
+    total = solve(u0s[groups[0]], zw[groups[0]])
+    for g in groups[1:]:
+        total = tuple(None if a is None else a + b
+                      for a, b in zip(total, solve(u0s[g], zw[g])))
+    return total
 
 
 def _device_checked(tensors):
@@ -241,3 +278,120 @@ def two_stream_solar_auto(tau, w0, gt, u0, Rsfc):
 
 
 two_stream_solar_auto.launches = 0
+
+
+def _solar_layer_ref(tau, w0, gt, tauc, u0):
+    """One layer's coefficients as the kernel's ``solar_layer`` forms them:
+    tau/w0/gt/tauc (rows, 1), u0 (1, nzen). e1-e4 and the scaled tau are
+    (rows, 1), the sources (rows, nzen)."""
+    s3 = ts._SQRT3
+    gg = gt * gt
+    tau_s = tau * (1.0 - w0 * gg)
+    w0_s = w0 * (1.0 - gg) / (1.0 - w0 * gg)
+    gt_s = gt / (1.0 + gt)
+    gam1 = s3 * (2.0 - w0_s * (1.0 + gt_s)) / 2.0
+    gam2 = s3 * w0_s * (1.0 - gt_s) / 2.0
+    lam = torch.sqrt(gam1 * gam1 - gam2 * gam2)
+    e1, e2, e3, e4 = ts._es(lam, gam2 / (gam1 + lam), tau_s)
+    inv_u0 = 1.0 / u0
+    gam3 = (1.0 - s3 * gt_s * u0) / 2.0
+    gam4 = 1.0 - gam3
+    facp = w0_s * ((gam1 - inv_u0) * gam3 + gam4 * gam2)
+    facm = w0_s * ((gam1 + inv_u0) * gam4 + gam2 * gam3)
+    et0 = torch.exp(-tauc / u0)
+    etb = et0 * torch.exp(-tau_s / u0)
+    denom = lam * lam - inv_u0 * inv_u0
+    return dict(e1=e1, e2=e2, e3=e3, e4=e4, tau=tau_s, cp0=et0 * facp / denom,
+                cpb=etb * facp / denom, cm0=et0 * facm / denom, cmb=etb * facm / denom,
+                dir_b=u0 * etb)
+
+
+def solar_weighted_schedule_ref(tau, w0, gt, u0s, Rsfc, zw, wbin, with_amean=True):
+    """Plain PyTorch model of the weighted solar kernel's schedule, for the
+    tests; no path calls it. Same arguments and outputs as
+    :func:`two_stream_solar_multi_weighted_cuda`.
+
+    (rows, nzen) are tensor axes where the kernel has a thread per pair. The
+    forward pass loops over layers top to bottom: layer coefficients, the
+    2x2-block Thomas elimination, and q, tauc (per row) and p (per row and
+    zenith) stored per layer. The backward pass, bottom to top, forms u_k =
+    p_k - q_k u_{k+1}[0], recomputes the layer's coefficients from the stored
+    tauc and reduces its edge fluxes at once: zeniths in order with zw, then
+    the gauss rows of each group in order with wbin, the kernel's order.
+    """
+    rows, nz = tau.shape
+    nzen, nG = u0s.shape[0], wbin.shape[0]
+    u0 = u0s[None, :]
+    col = lambda x, k: x[:, k:k + 1]
+    zero = torch.zeros((rows, 1), dtype=tau.dtype, device=tau.device)
+    layer = lambda k, tauc: _solar_layer_ref(col(tau, k), col(w0, k), col(gt, k), tauc, u0)
+    Rs = Rsfc[:, None]
+
+    q, p, tauc_k = [None] * nz, [None] * nz, [None] * nz
+    tauc = zero
+    cur = layer(0, tauc)
+    tauc_k[0] = tauc
+    Aev, Bev, Dev, Eev, p1prev, q1prev = zero, cur["e1"], -cur["e2"], -cur["cm0"], 0.0, zero
+    for k in range(nz):
+        if k < nz - 1:
+            tauc = tauc + cur["tau"]
+            nxt = layer(k + 1, tauc)
+            tauc_k[k + 1] = tauc
+            c, n = cur, nxt
+            Aod = n["e2"] * c["e1"] - c["e3"] * n["e4"]
+            Bod = c["e2"] * n["e2"] - c["e4"] * n["e4"]
+            Dod = n["e1"] * n["e4"] - n["e2"] * n["e3"]
+            Eod = n["e2"] * (n["cp0"] - c["cpb"]) - n["e4"] * (n["cm0"] - c["cmb"])
+            nxt_ev = (c["e2"] * c["e3"] - c["e4"] * c["e1"], c["e1"] * n["e1"] - c["e3"] * n["e3"],
+                      c["e3"] * n["e4"] - c["e1"] * n["e2"],
+                      c["e3"] * (n["cp0"] - c["cpb"]) + c["e1"] * (c["cmb"] - n["cm0"]))
+        else:
+            c = cur
+            Aod, Bod, Dod = c["e1"] - Rs * c["e3"], c["e2"] - Rs * c["e4"], zero
+            Eod = Rs * c["dir_b"] - c["cpb"] + Rs * c["cmb"]
+            nxt_ev = None
+        M00 = Bev - Aev * q1prev
+        inv_det = 1.0 / (M00 * Bod - Dev * Aod)
+        X00, X01, X10, X11 = Bod * inv_det, -Dev * inv_det, -Aod * inv_det, M00 * inv_det
+        q1prev = X11 * Dod
+        q[k] = (X01 * Dod, q1prev)
+        f0 = Eev - Aev * p1prev
+        p1prev = X10 * f0 + X11 * Eod
+        p[k] = (X00 * f0 + X01 * Eod, p1prev)
+        if nxt_ev is not None:
+            cur = nxt
+            Aev, Bev, Dev, Eev = nxt_ev
+
+    def reduce(v):  # (rows, nzen) -> (groups,): zeniths in order, then gauss rows
+        acc = torch.zeros(rows, dtype=tau.dtype, device=tau.device)
+        for z in range(nzen):
+            acc = acc + zw[z] * v[:, z]
+        acc = acc.reshape(-1, nG)
+        s = torch.zeros(acc.shape[0], dtype=tau.dtype, device=tau.device)
+        for g in range(nG):
+            s = s + wbin[g] * acc[:, g]
+        return s
+
+    n_out = 3 if with_amean else 2
+    out = [[None] * (nz + 1) for _ in range(n_out)]
+    u1 = 1.0 / ts._SQRT3
+    unext = 0.0
+    for k in range(nz - 1, -1, -1):
+        y1 = p[k][0] - q[k][0] * unext
+        y2 = p[k][1] - q[k][1] * unext
+        unext = y1
+        c = layer(k, tauc_k[k])
+        fup_t = y1 * c["e3"] - y2 * c["e4"] + c["cp0"]
+        bot = [y1 * c["e1"] + y2 * c["e2"] + c["cpb"],
+               y1 * c["e3"] + y2 * c["e4"] + c["cmb"] + c["dir_b"]]
+        top = [fup_t, u0.expand(rows, nzen)]
+        if with_amean:
+            bot.append((1.0 / u1) * (y1 * (c["e1"] + c["e3"]) + y2 * (c["e2"] + c["e4"])
+                                     + c["cpb"] + c["cmb"]) + c["dir_b"] / u0)
+            top.append((1.0 / u1) * fup_t + u0 / u0)
+        for o in range(n_out):
+            out[o][k + 1] = reduce(bot[o])
+            if k == 0:
+                out[o][0] = reduce(top[o])
+    fup, fdn, *am = (torch.stack(edges, dim=-1) for edges in out)
+    return (am[0] if with_amean else None), fup, fdn

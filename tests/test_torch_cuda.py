@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain twins on the card (float64,
-RORR also in float32 and on ties; small shapes), the nbin > 16 RORR routing
-and AdiabatClimate on the card. Skipped where no CUDA device is present; on a GPU machine:
+RORR and the weighted solar kernel also in float32, RORR on ties; small
+shapes), the nbin > 16 RORR routing and AdiabatClimate on the card. Skipped
+where no CUDA device is present; on a GPU machine:
 ``python -m pytest --noconftest tests/test_torch_cuda.py -m cuda`` (the
 suite's conftest configures JAX, which a GPU machine need not have)."""
 
@@ -13,6 +14,7 @@ import torch
 from clima_tpu_torch.adiabat import AdiabatClimate
 from clima_tpu_torch.data import make_template
 from clima_tpu_torch.ops import rorr, rorr_cuda, twostream, twostream_cuda
+from clima_tpu_torch.physics import eqns
 from clima_tpu_torch.radtran import opacity
 from clima_tpu_torch.radtran.opacity import _rorr_mix
 
@@ -57,17 +59,63 @@ def test_ir_weighted_kernel_matches_twin(dev, hard):
     assert twostream_cuda.two_stream_ir_weighted_cuda.launches == n + 1
 
 
-@pytest.mark.parametrize("nzen", [3, 6])
+def _close_f32(got, want):
+    """float32: the largest error under 1e-4 of the largest value."""
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+            continue
+        g, w = g.double().cpu().numpy(), w.double().cpu().numpy()
+        assert np.isfinite(g).all() and np.abs(g - w).max() <= 1e-4 * np.abs(w).max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("nzen", [1, 3, 4, 6, 9, 12, 16])
 @pytest.mark.parametrize("with_amean", [True, False])
-def test_solar_multi_weighted_kernel_matches_twin(dev, with_amean, nzen):
+def test_solar_multi_weighted_kernel_matches_twin(dev, with_amean, nzen, dtype):
+    """7 gauss groups of 4 rows, which fill no block of whole groups (32, 10,
+    8, 5, 3, 2 and 2 groups per block at these zenith counts). float64:
+    random zenith cosines, rtol 1e-9. float32: the Gauss zenith nodes, since
+    random ones meet the lam^2 = 1/u0^2 resonance of the solar source (a
+    fault of the reference's formulation), held at 1e-4 of the largest
+    value."""
     nw, nG, nz = 7, 4, 33
     tau, w0, gt = _atm(nw * nG, nz, dev, 5)
     rng = np.random.default_rng(6)
+    t = lambda x: torch.tensor(x, dtype=dtype, device=dev)
+    if dtype == torch.float64:
+        u0s, rs, zw = rng.uniform(0.2, 1.0, nzen), rng.uniform(0.0, 0.6, nw * nG), \
+            rng.uniform(0.1, 0.5, nzen)
+    else:
+        ang, zw = eqns.zenith_angles_and_weights(nzen)
+        u0s, rs = np.cos(np.asarray(ang) * np.pi / 180.0), rng.uniform(0.0, 0.6, nw * nG)
+    args = (tau.to(dtype), w0.to(dtype), gt.to(dtype), t(u0s), t(rs), t(zw),
+            t(np.polynomial.legendre.leggauss(nG)[1] / 2.0))
+    n = twostream_cuda.two_stream_solar_multi_weighted_cuda.launches
+    got = twostream_cuda.two_stream_solar_multi_weighted_cuda(*args, with_amean=with_amean)
+    assert twostream_cuda.two_stream_solar_multi_weighted_cuda.launches == n + 1
+    assert got[1].dtype == dtype and got[1].shape == (nw, nz + 1)
+    want = twostream.two_stream_solar_multi_weighted(*args, with_amean=with_amean)
+    (_close if dtype == torch.float64 else _close_f32)(got, want)
+
+
+@pytest.mark.parametrize("with_amean", [True, False])
+def test_solar_multi_weighted_kernel_splits_zenith_groups(dev, with_amean):
+    """128 gauss rows x 9 zeniths = 1152 threads per group, past any block:
+    the zeniths run in groups, one launch each, and the groups' weighted
+    outputs are summed."""
+    nw, nG, nz, nzen = 3, 128, 17, 9
+    tau, w0, gt = _atm(nw * nG, nz, dev, 17)
+    rng = np.random.default_rng(18)
     t = lambda x: torch.tensor(x, device=dev)
     args = (tau, w0, gt, t(rng.uniform(0.2, 1.0, nzen)), t(rng.uniform(0.0, 0.6, nw * nG)),
             t(rng.uniform(0.1, 0.5, nzen)), t(np.polynomial.legendre.leggauss(nG)[1] / 2.0))
+    per = twostream_cuda._solar_max_group(True, with_amean) // nG
+    n = twostream_cuda.two_stream_solar_multi_weighted_cuda.launches
     _close(twostream_cuda.two_stream_solar_multi_weighted_cuda(*args, with_amean=with_amean),
            twostream.two_stream_solar_multi_weighted(*args, with_amean=with_amean))
+    launches = twostream_cuda.two_stream_solar_multi_weighted_cuda.launches - n
+    assert launches == -(-nzen // per) and launches >= 2
 
 
 @pytest.mark.parametrize("nbin", [3, 8, 12, 16])

@@ -1,7 +1,8 @@
 """Two-stream twins of the PyTorch port against clima_tpu (float64, CPU):
 the XLA-path twins at rtol 1e-12 (same math), the Pallas kernels in
-interpret mode at rtol 1e-9 / atol 1e-12 (the JAX tests' own bound), and
-the kernel wrappers' CPU dispatch."""
+interpret mode at rtol 1e-9 / atol 1e-12 (the JAX tests' own bound), the
+plain model of the weighted solar kernel's schedule at that bound, the
+zenith grouping of the kernel wrappers, and their CPU dispatch."""
 
 import functools
 from unittest import mock
@@ -101,6 +102,52 @@ def test_solar_multi_weighted_matches_reference(interpret, with_amean):
     wrapped = tc.two_stream_solar_multi_weighted_cuda(*T(tau, w0, gt, u0s, rs, zw, wbin),
                                                       with_amean=with_amean)
     _close(wrapped, [None if g is None else g.numpy() for g in got], 0.0, 0.0)
+
+
+@pytest.mark.parametrize("with_amean", [True, False])
+@pytest.mark.parametrize("nzen", [1, 4, 9, 12])
+def test_solar_weighted_schedule_ref_matches_reference(interpret, nzen, with_amean):
+    """The plain model of the weighted solar kernel's schedule (a thread per
+    (row, zenith), back substitution fused with the edge fluxes, zenith then
+    gauss reduction) against the JAX package's Pallas kernel in interpret
+    mode and its XLA path, at every zenith count the kernel takes in one
+    launch and past 8, with a thin layer."""
+    nw, nG, nz = 3, 4, 17
+    B = nw * nG
+    tau, w0, gt = _atm(B, nz, seed=30 + nzen)
+    tau[5, 3] = 1e-7
+    rng = np.random.default_rng(31)
+    u0s, rs = rng.uniform(0.2, 1.0, nzen), rng.uniform(0.0, 0.6, B)
+    zw, wbin = rng.uniform(0.1, 0.5, nzen), np.polynomial.legendre.leggauss(nG)[1] / 2.0
+    args = (tau, w0, gt, u0s, rs, zw, wbin)
+    got = tc.solar_weighted_schedule_ref(*T(*args), with_amean=with_amean)
+    assert got[1].shape == (nw, nz + 1) and (got[0] is None) == (not with_amean)
+    kern = pts.two_stream_solar_multi_weighted_pallas(*J(*args), block_b=8,
+                                                      with_amean=with_amean)
+    xla = ref_ts.two_stream_solar_multi_weighted(*J(*args), with_amean=with_amean)
+    _close(got, kern, RTOL_KERNEL, ATOL_KERNEL)
+    _close(got, xla, RTOL_KERNEL, ATOL_KERNEL)
+
+
+@pytest.mark.parametrize("size", [1, 5, 8])
+def test_weighted_zenith_groups_sum_to_the_unsplit_solve(size):
+    """The weighted solar kernel's zenith groups (past its block size), with
+    the twin taking the launch's place: the groups' weighted outputs summed
+    equal the unsplit twin's, the outputs being linear in zw."""
+    nw, nG, nz, nzen = 3, 4, 13, 12
+    tau, w0, gt = _atm(nw * nG, nz, seed=32)
+    rng = np.random.default_rng(33)
+    tt = T(tau, w0, gt, rng.uniform(0.2, 1.0, nzen), rng.uniform(0.0, 0.6, nw * nG),
+           rng.uniform(0.1, 0.5, nzen), np.polynomial.legendre.leggauss(nG)[1] / 2.0)
+    sizes = []
+
+    def solve(u0_group, zw_group):
+        sizes.append(u0_group.shape[0])
+        return ts.two_stream_solar_multi_weighted(*tt[:3], u0_group, tt[4], zw_group, tt[6])
+
+    got = tc._zenith_groups(solve, tt[3], size, zw=tt[5])
+    assert sizes == [size] * (nzen // size) + [nzen % size] * (nzen % size > 0)
+    _close(got, [x.numpy() for x in ts.two_stream_solar_multi_weighted(*tt)], 1e-13, 1e-15)
 
 
 @pytest.mark.parametrize("hard", [True, False])
