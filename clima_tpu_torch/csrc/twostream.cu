@@ -676,17 +676,13 @@ int launch_solar_weighted(const void* tau, const void* w0, const void* gt, const
   if (per < 1) per = 1;
   const int threads = per * group;
   const long long blocks = (rows / nG + per - 1) / per;
-  // edges per reduction: as many as fit beside the block in 48 KB, 1 to kSolarEdges
+  // edges per reduction: as many as fit beside the block in the 48 KB of
+  // dynamic shared memory a launch gets by default, 1 to kSolarEdges (a
+  // block that cannot hold 2 slots there fails to launch, reported below)
   const size_t per_slot = size_t(NOUT) * threads * sizeof(T);
   int E = int((48 * 1024 - size_t(nzen + nG) * sizeof(T)) / per_slot) - 1;
   E = E < 1 ? 1 : (E > kSolarEdges ? kSolarEdges : E);
   const size_t smem = size_t(nzen + nG) * sizeof(T) + (E + 1) * per_slot;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(solar_weighted_kernel<T, AMEAN>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           int(smem));
-    if (err != cudaSuccess) return int(err);
-  }
   T* q = (T*)scratch;
   T* tauc = q + 2LL * nz * rows;
   T* p = tauc + 1LL * nz * rows;

@@ -40,17 +40,16 @@ __all__ = ["two_stream_ir_weighted_cuda", "two_stream_solar_multi_weighted_cuda"
 
 # zenith angles of one launch of the unreduced kernel (its largest instance)
 _ROWS_MAX_ZENITHS = 8
-_MAX_GROUP = {}  # (float64?, amean?) -> the weighted solar kernel's largest nG * nzen
 
 
 def _solar_max_group(is_f64, with_amean):
-    key = (bool(is_f64), bool(with_amean))
-    if key not in _MAX_GROUP:
-        n = load_library("twostream")["clima_twostream_solar_max_group"](*map(int, key))
-        if n <= 0:
-            raise RuntimeError(f"cannot read the solar kernel's attributes: CUDA error {-n}")
-        _MAX_GROUP[key] = n
-    return _MAX_GROUP[key]
+    """The weighted solar kernel's largest nG * nzen (threads) per launch on
+    the current device, which its registers bound."""
+    n = load_library("twostream")["clima_twostream_solar_max_group"](int(is_f64),
+                                                                    int(with_amean))
+    if n <= 0:
+        raise RuntimeError(f"cannot read the solar kernel's attributes: CUDA error {-n}")
+    return n
 
 
 def _check(tensors, dtype, device):
