@@ -9,11 +9,14 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
 2. build: the CUDA kernels from clima_tpu_torch/csrc/, one nvcc per source,
    started together, with build seconds and ptxas's registers, stack and
    spills for each kernel instance; fails if an instance of the RORR kernel
-   or of the weighted solar kernel spills;
+   or of either weighted two-stream kernel spills;
 3. each kernel against its plain PyTorch twin on the card, float64:
    a. the weight-fused kernels of the radtran path at the flagship shapes
-      (IR two-stream with hard and soft surface and a thin layer; the
-      weighted solar kernel with 4 zenith angles, with and without amean,
+      (IR two-stream with hard and soft surface and a thin layer, timed, and
+      timed in float32 too, where its output must be finite and its
+      deviation from the float64 twin is printed beside the float32 twin's
+      own, then held to the float32 twin on the Planck function of a
+      temperature column; the weighted solar kernel with 4 zenith angles, with and without amean,
       both timed, and timed in float32 too, where its output must be
       finite and its deviation from the float64 twin is printed beside the
       float32 twin's own; RORR with 3 species at nbin 8 and 16, both timed
@@ -103,29 +106,31 @@ ENTRY_B, ENTRY_NZ = 8, 50  # __graft_entry__.entry
 HBM_BYTES_PER_S, FP64_OPS_PER_S = 3.35e12, 34e12  # H100 SXM data sheet (non-tensor FP64)
 F64 = 8
 
+# each wrapper, its CUDA kernel (the __global__ function in ``source``) and
+# the TPU kernel it replaces
 KERNELS = {
     "two_stream_ir_weighted": dict(
-        wrapper=twostream_cuda.two_stream_ir_weighted_cuda,
+        wrapper=twostream_cuda.two_stream_ir_weighted_cuda, kernel="ir_weighted_kernel",
         source="clima_tpu_torch/csrc/twostream.cu",
         replaces="clima_tpu/ops/pallas_twostream.py:261"),
     "two_stream_solar_multi_weighted": dict(
         wrapper=twostream_cuda.two_stream_solar_multi_weighted_cuda,
-        source="clima_tpu_torch/csrc/twostream.cu",
+        kernel="solar_weighted_kernel", source="clima_tpu_torch/csrc/twostream.cu",
         replaces="clima_tpu/ops/pallas_twostream.py:194"),
     "k_rorr_mix": dict(
-        wrapper=rorr_cuda.k_rorr_mix_cuda,
+        wrapper=rorr_cuda.k_rorr_mix_cuda, kernel="rorr_chain_kernel",
         source="clima_tpu_torch/csrc/rorr.cu",
         replaces="clima_tpu/ops/pallas_rorr.py:145"),
     "two_stream_ir": dict(
-        wrapper=twostream_cuda.two_stream_ir_auto,
+        wrapper=twostream_cuda.two_stream_ir_auto, kernel="twostream_kernel",
         source="clima_tpu_torch/csrc/twostream.cu",
         replaces="clima_tpu/ops/pallas_twostream.py:303"),
     "two_stream_solar_multi": dict(
-        wrapper=twostream_cuda.two_stream_solar_multi_auto,
+        wrapper=twostream_cuda.two_stream_solar_multi_auto, kernel="twostream_kernel",
         source="clima_tpu_torch/csrc/twostream.cu",
         replaces="clima_tpu/ops/pallas_twostream.py:107"),
     "two_stream_solar": dict(
-        wrapper=twostream_cuda.two_stream_solar_auto,
+        wrapper=twostream_cuda.two_stream_solar_auto, kernel="twostream_kernel",
         source="clima_tpu_torch/csrc/twostream.cu",
         replaces="clima_tpu/ops/pallas_twostream.py:68"),
 }
@@ -257,7 +262,7 @@ def phase_build():
             elif "registers" in line or "spill" in line:
                 print("     ", line.strip())
                 stores = re.search(r"(\d+) bytes spill stores", line)
-                checked = name == "rorr" or "solar_weighted_kernel" in fn
+                checked = name == "rorr" or "weighted_kernel" in fn
                 if checked and stores and int(stores.group(1)) > 0:
                     spills.append(fn)
     if spills:
@@ -297,7 +302,41 @@ def phase_kernels(device, B=B_COLS, nz=NZ_R, nw_ir=28, nw_sol=32, nw=51, nG=8,
               rows * nz * twostream_ops(False))
     print(f"  IR rows={rows} nz={nz}: kernel {r['ms']:.3f} ms, twin {r['plain_ms']:.3f} ms, "
           f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
-    del tau, w0, gt, emis, bpl
+    # float32, timed on the same inputs: the output must be finite, and its
+    # deviation from the float64 twin is printed beside the float32 twin's
+    # own (under random Planck values the linear-in-tau source of thin layers
+    # cancels in float32, in the twin alike); then held to the float32 twin at
+    # 1e-4 of the largest value on the Planck function of a temperature column
+    ir_ms = lambda args: event_ms(lambda: twostream_cuda.two_stream_ir_weighted_cuda(*args),
+                                  device, reps)
+    args32 = [a.float() if torch.is_tensor(a) else a for a in ir_args(True)]
+    want64 = twostream.two_stream_ir_weighted(*ir_args(True))
+    got32 = twostream_cuda.two_stream_ir_weighted_cuda(*args32)
+    twin32 = twostream.two_stream_ir_weighted(*args32)
+    if not all(bool(torch.isfinite(x).all()) for x in got32):
+        raise AssertionError("non-finite float32 IR kernel output")
+    dev64 = lambda xs: max(float((x.double() - w).abs().max() / w.abs().max())
+                           for x, w in zip(xs, want64))
+    print(f"  IR float32: kernel {ir_ms(args32):.3f} ms; largest deviation from the float64 "
+          f"twin over its largest value: kernel {dev64(got32):.3e}, float32 twin "
+          f"{dev64(twin32):.3e}")
+    del args32, want64, got32, twin32
+    gen_t = torch.Generator(device=device).manual_seed(1)
+    rand_t = lambda *shape: torch.rand(shape, generator=gen_t, dtype=torch.float64, device=device)
+    T_col = torch.linspace(290.0, 180.0, nz + 1, dtype=torch.float64, device=device)
+    freq = 10.0 ** (12.5 + 1.5 * rand_t(rows // nG, 1))
+    bpl_t = eqns.planck_fcn(freq, T_col[None, :] + 10.0 * (rand_t(rows // nG, 1) - 0.5))
+    args32 = [a.float() if torch.is_tensor(a) else a for a in ir_args(True)]
+    args32[6] = bpl_t.repeat_interleave(nG, dim=0).float()
+    got32 = twostream_cuda.two_stream_ir_weighted_cuda(*args32)
+    twin32 = twostream.two_stream_ir_weighted(*args32)
+    maxrel = max(float((g.double() - w.double()).abs().max() / w.double().abs().max())
+                 for g, w in zip(got32, twin32))
+    print(f"  IR float32 on Planck values of a temperature column: maxrel {maxrel:.3e} "
+          f"against the float32 twin")
+    if not (all(bool(torch.isfinite(x).all()) for x in got32) and maxrel < 1e-4):
+        raise AssertionError(f"float32 IR kernel deviates from its twin: {maxrel:.3e}")
+    del tau, w0, gt, emis, bpl, args32, got32, twin32, bpl_t
 
     # solar: rows = B*32*8, 4 zenith angles, with and without amean
     rows = B * nw_sol * nG
@@ -721,12 +760,14 @@ def phase_radtran_path(device, B=B_COLS, K=K_INNER, nz_template=NZ_TEMPLATE, rep
     if busy == 0.0:
         print("  profiler: no device time recorded (not measured)")
     else:
-        groups = {"RORR": ("rorr_chain",), "two-stream": ("twostream", "solar_weighted_kernel")}
+        groups = {"RORR": ("rorr_chain",),
+                  "two-stream": ("twostream", "solar_weighted_kernel", "ir_weighted_kernel")}
         shares = {g: sum(ms for name, ms in times.items() if any(k in name for k in keys))
                   for g, keys in groups.items()}
         shares["other"] = busy - sum(shares.values())
-        shares["of which weighted solar"] = sum(ms for name, ms in times.items()
-                                                if "solar_weighted_kernel" in name)
+        for label, key in (("weighted solar", "solar_weighted_kernel"),
+                           ("weighted IR", "ir_weighted_kernel")):
+            shares[f"of which {label}"] = sum(ms for name, ms in times.items() if key in name)
         print(f"  profiler, one batch: device busy {busy:.3f} ms in {len(times)} kernel "
               f"names; " + ", ".join(f"{g} {ms:.3f} ms ({100 * ms / busy:.1f} %)"
                                      for g, ms in shares.items()))
@@ -947,8 +988,9 @@ def main():
     phase_radtran_path(device)
     launches.update(phase_adiabat_path(device, smi))
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    kernels = [dict(name=name, route="cuda", source=k["source"], replaces=k["replaces"],
-                    launches=launches[name], **{key: RESULTS[name][key] for key in keys})
+    kernels = [dict(name=name, route="cuda", kernel=k["kernel"], source=k["source"],
+                    replaces=k["replaces"], launches=launches[name],
+                    **{key: RESULTS[name][key] for key in keys})
                for name, k in KERNELS.items()]
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(smi)

@@ -1,11 +1,9 @@
 // Toon et al. (1989) two-stream solves for Hopper (sm_90a), float and double:
 // weight-fused (the gauss and zenith sums done in the kernel) and unreduced
-// (every row's edge fluxes written out). Two kernels live here.
+// (every row's edge fluxes written out). Three kernels live here.
 //
 // 1. The row template (twostream_kernel) replaces the JAX package's Pallas
 //    TPU kernels
-//   clima_tpu/ops/pallas_twostream.py::two_stream_ir_weighted_pallas
-//     (_ir_weighted_kernel): hemispheric-mean IR, linear-in-tau Planck source
 //   clima_tpu/ops/pallas_twostream.py::two_stream_ir_pallas (_ir_kernel):
 //     IR per row, unreduced
 //   clima_tpu/ops/pallas_twostream.py::two_stream_solar_multi_pallas
@@ -18,7 +16,11 @@
 //   clima_tpu/ops/pallas_twostream.py::two_stream_solar_multi_weighted_pallas
 //     (_solar_multi_weighted_kernel): delta-Eddington quadrature solar for
 //     any number of zenith angles, zenith- and gauss-weighted, amean optional
-// Both compute what clima_tpu/ops/twostream.py computes for them.
+// 3. The weighted IR kernel (ir_weighted_kernel, designed after it) replaces
+//   clima_tpu/ops/pallas_twostream.py::two_stream_ir_weighted_pallas
+//     (_ir_weighted_kernel): hemispheric-mean IR, linear-in-tau Planck
+//     source, gauss-weighted
+// Each computes what clima_tpu/ops/twostream.py computes for it.
 //
 // Template design. One thread owns one (column, bin, gauss point) row and
 // solves its 2nz system by 2x2-block Thomas elimination (never scalar Thomas:
@@ -32,11 +34,8 @@
 //   pass 1  forward: layer coefficients, elimination, p and q to scratch
 //   pass 2  backward: u_k overwrites p_k in scratch
 //   pass 3  forward: recompute the layer coefficients (bit-identical to
-//           pass 1) and rebuild the edge fluxes. Weighted (the IR instance):
-//           sum the nG rows of a gauss group in shared memory in a fixed
-//           order; a block holds whole gauss groups; no atomics, so results
-//           repeat bit for bit. Unreduced: each thread stores its own row's
-//           edges (and the surface radiance), per zenith.
+//           pass 1) and store each row's edge fluxes (and the surface
+//           radiance), per zenith.
 // Scratch is laid out (nz, values, rows), rows fastest, so its accesses are
 // coalesced. What bounds it: the per-thread sequential recurrence over nz
 // (latency of dependent double-precision divides and exps) at low occupancy
@@ -151,54 +150,22 @@ __device__ __forceinline__ void load_layer(int64_t row, int k, int nz, const T* 
   }
 }
 
-// Weighted sum over the nG rows of each gauss group at edge j, in a fixed
-// order, then one store per group and output.
-template <typename T, int NOUT>
-__device__ __forceinline__ void reduce_store(T* sm, const T* v, bool lead, const T* wbin,
-                                             int nG, int64_t grp, int j, int nz,
-                                             T* const* outs) {
-  const int bd = blockDim.x, tid = threadIdx.x;
-#pragma unroll
-  for (int o = 0; o < NOUT; ++o) sm[o * bd + tid] = v[o];
-  __syncthreads();
-  if (lead) {
-#pragma unroll
-    for (int o = 0; o < NOUT; ++o) {
-      T s = T(0);
-      for (int g = 0; g < nG; ++g) s += wbin[g] * sm[o * bd + tid + g];
-      outs[o][grp * (nz + 1) + j] = s;
-    }
-  }
-  __syncthreads();
-}
-
-// REDUCE (IR only): outputs (rows/nG, nz+1), gauss-weighted.
-// !REDUCE: outputs (nzen, rows, nz+1) (IR: (rows, nz+1)); out_srad (nzen, rows).
+// Outputs (nzen, rows, nz+1) (IR: (rows, nz+1)); out_srad (nzen, rows).
 // ROW: one zenith cosine per row, u0s_g (rows,), NR = 1.
-template <typename T, bool SOLAR, bool AMEAN, int NR, bool REDUCE, bool ROW>
+template <typename T, bool SOLAR, bool AMEAN, int NR, bool ROW>
 __global__ void twostream_kernel(
     const T* __restrict__ tau, const T* __restrict__ w0, const T* __restrict__ gt,
     const T* __restrict__ surf, const T* __restrict__ bpl, const T* __restrict__ u0s_g,
-    int nzen, const T* __restrict__ wbin_g, int nG,
-    int64_t rows, int nz, int hard, T tau_min, T* __restrict__ scratch,
+    int nzen, int64_t rows, int nz, int hard, T tau_min, T* __restrict__ scratch,
     T* __restrict__ out_am, T* __restrict__ out_fup, T* __restrict__ out_fdn,
     T* __restrict__ out_srad) {
-  static_assert(!(SOLAR && REDUCE), "the weighted solar solve is solar_weighted_kernel");
-  constexpr int NOUT = AMEAN ? 3 : 2;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sm = reinterpret_cast<T*>(smem_raw);  // NOUT * blockDim (REDUCE only)
-  __shared__ T u0s[NR], wbin[REDUCE ? 1024 : 1];
+  __shared__ T u0s[NR];
   const int nrhs = SOLAR ? nzen : 1;
-  if constexpr (REDUCE) {
-    for (int i = threadIdx.x; i < nG; i += blockDim.x) wbin[i] = wbin_g[i];
-  }
   if (SOLAR && !ROW && threadIdx.x < nzen) u0s[threadIdx.x] = u0s_g[threadIdx.x];
   __syncthreads();
 
   const int64_t row = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
   const bool active = row < rows;
-  const int64_t grp = row / nG;
-  const bool lead = active && (row % nG == 0);
   const int nval = 2 + 2 * NR;  // q0, q1, then (p0, p1) per right-hand side
   const int64_t stride_v = rows, stride_k = int64_t(nval) * rows;
   T* sc = scratch + row;
@@ -308,16 +275,10 @@ __global__ void twostream_kernel(
     }
   }
 
-  // ---- pass 3: edge fluxes, reduced or stored per row ----
-  T* outs[3];
-  if (AMEAN) { outs[0] = out_fup; outs[1] = out_fdn; outs[2] = out_am; }
-  else { outs[0] = out_fup; outs[1] = out_fdn; outs[2] = nullptr; }
+  // ---- pass 3: edge fluxes, stored per row ----
   const int64_t ne = nz + 1;
   T tauc = T(0);
   for (int k = 0; k < nz; ++k) {
-    T top[NOUT], bot[NOUT];
-#pragma unroll
-    for (int o = 0; o < NOUT; ++o) { top[o] = T(0); bot[o] = T(0); }
     if (active) {
       Layer<T, NR> c;
       load_layer<T, SOLAR, NR>(row, k, nz, tau, w0, gt, bpl, tau_min, tauc, u0v, nzen, c);
@@ -347,10 +308,6 @@ __global__ void twostream_kernel(
             out_fdn[base + k + 1] = fdn_b + c.dir_b[r];
             out_am[base + k + 1] = am_b;
             if (k == nz - 1) out_srad[int64_t(r) * rows + row] = fdn_b / u1 + exp(-tauc / u0);
-          } else if constexpr (REDUCE) {
-            top[0] = fup_t;
-            bot[0] = fup_b;
-            bot[1] = fdn_b;
           } else {
             const int64_t base = row * ne;
             if (k == 0) {
@@ -363,35 +320,20 @@ __global__ void twostream_kernel(
         }
       }
     }
-    if constexpr (REDUCE) {
-      if (k == 0) reduce_store<T, NOUT>(sm, top, lead, wbin, nG, grp, 0, nz, outs);
-      reduce_store<T, NOUT>(sm, bot, lead, wbin, nG, grp, k + 1, nz, outs);
-    }
   }
 }
 
-template <typename T, bool SOLAR, bool AMEAN, int NR, bool REDUCE, bool ROW>
+template <typename T, bool SOLAR, bool AMEAN, int NR, bool ROW>
 int launch(const void* tau, const void* w0, const void* gt, const void* surf,
-           const void* bpl, const void* u0s, int nzen, const void* wbin,
-           int nG, long long rows, int nz, int hard, double tau_min, void* scratch,
-           void* out_am, void* out_fup, void* out_fdn, void* out_srad, cudaStream_t stream) {
-  constexpr int NOUT = AMEAN ? 3 : 2;
-  int threads = 128;
-  long long blocks = (rows + threads - 1) / threads;
-  size_t smem = 0;
-  if (REDUCE) {
-    int per = 128 / nG;
-    if (per < 1) per = 1;
-    threads = per * nG;
-    long long groups = rows / nG;
-    blocks = (groups + per - 1) / per;
-    smem = size_t(NOUT) * threads * sizeof(T);
-  }
-  twostream_kernel<T, SOLAR, AMEAN, NR, REDUCE, ROW><<<dim3(unsigned(blocks)), threads, smem,
-                                                       stream>>>(
+           const void* bpl, const void* u0s, int nzen, long long rows, int nz, int hard,
+           double tau_min, void* scratch, void* out_am, void* out_fup, void* out_fdn,
+           void* out_srad, cudaStream_t stream) {
+  const int threads = 128;
+  const long long blocks = (rows + threads - 1) / threads;
+  twostream_kernel<T, SOLAR, AMEAN, NR, ROW><<<dim3(unsigned(blocks)), threads, 0, stream>>>(
       (const T*)tau, (const T*)w0, (const T*)gt, (const T*)surf, (const T*)bpl,
-      (const T*)u0s, nzen, (const T*)wbin, nG, rows, nz, hard, T(tau_min),
-      (T*)scratch, (T*)out_am, (T*)out_fup, (T*)out_fdn, (T*)out_srad);
+      (const T*)u0s, nzen, rows, nz, hard, T(tau_min), (T*)scratch, (T*)out_am,
+      (T*)out_fup, (T*)out_fdn, (T*)out_srad);
   return int(cudaGetLastError());
 }
 
@@ -484,9 +426,10 @@ __device__ __forceinline__ void solar_layer_1(T tau_in, T w0_in, T gt_in, T tauc
 
 // The weighted sums of a chunk of ne edges (descending from edge j0): one
 // (gauss group, edge, output) item per thread, each summing its group's
-// zeniths in order with zw for every gauss row, then the gauss rows in
-// order with wbin. vals holds (NOUT, slots, blockDim) per-thread values.
-template <typename T, int NOUT>
+// zeniths in order with zw for every gauss row (ZEN; without it a gauss row
+// is one thread, nzen = 1), then the gauss rows in order with wbin. vals
+// holds (NOUT, slots, blockDim) per-thread values.
+template <typename T, int NOUT, bool ZEN>
 __device__ __forceinline__ void reduce_edges(const T* vals, int slots, int ne, int j0,
                                              const T* zw, const T* wbin, int nzen, int nG,
                                              int64_t grp0, int64_t groups, int nz, T* out_fup,
@@ -498,8 +441,13 @@ __device__ __forceinline__ void reduce_edges(const T* vals, int slots, int ne, i
     const T* v = vals + (o * slots + e) * bd + gl * nG * nzen;
     T s = T(0);
     for (int g = 0; g < nG; ++g) {
-      T acc = T(0);
-      for (int r = 0; r < nzen; ++r) acc += zw[r] * v[g * nzen + r];
+      T acc;
+      if constexpr (ZEN) {
+        acc = T(0);
+        for (int r = 0; r < nzen; ++r) acc += zw[r] * v[g * nzen + r];
+      } else {
+        acc = v[g];
+      }
       s += wbin[g] * acc;
     }
     T* out = o == 0 ? out_fup : (o == 1 ? out_fdn : out_am);
@@ -642,8 +590,8 @@ __global__ void solar_weighted_kernel(
     }
     if (slot >= E || k == 0) {  // the same at every thread
       __syncthreads();
-      reduce_edges<T, NOUT>(vals, slots, slot, j0, zw, wbin, nzen, nG, grp0, groups, nz,
-                            out_fup, out_fdn, out_am);
+      reduce_edges<T, NOUT, true>(vals, slots, slot, j0, zw, wbin, nzen, nG, grp0, groups, nz,
+                                  out_fup, out_fdn, out_am);
       __syncthreads();
       j0 -= slot;
       slot = 0;
@@ -692,6 +640,201 @@ int launch_solar_weighted(const void* tau, const void* w0, const void* gt, const
   return int(cudaGetLastError());
 }
 
+// ---- The weighted IR kernel ----
+//
+// Replaces clima_tpu/ops/pallas_twostream.py::two_stream_ir_weighted_pallas
+// (_ir_weighted_kernel) and computes what ops/twostream.py's
+// two_stream_ir_weighted computes: the IR solve of every row, summed over
+// each gauss group with wbin.
+//
+// What held the row template back for this solve: two block barriers per
+// edge (~400 per thread at nz 202), with one thread in nG summing its group
+// in series between them; and three passes over a (nz, 4, rows) scratch (p
+// and q written, p rewritten as u, u read again), with the inputs read twice.
+//
+// Design. One thread owns one (column, bin, gauss point) row; a block holds
+// whole gauss groups (about kIrThreads threads). It runs the template's
+// 2x2-block Thomas elimination, its operations unchanged, in two passes:
+//   forward: the layer coefficients (the next layer's inputs read one layer
+//            ahead) and the elimination, top to bottom; each layer's q and p
+//            stored once.
+//   backward (bottom to top, scratch and inputs read one layer ahead):
+//            u_k = p_k - q_k * u_{k+1}[0], the layer's coefficients
+//            recomputed (bit-identical to the forward's: an IR layer needs
+//            only its own tau, w0, g and two Planck values), and its edge
+//            fluxes put in shared memory. Every kIrEdges edges (fewer where
+//            the block's values would pass 48 KB), between two block
+//            barriers, one thread per (gauss group, edge, output) sums the
+//            group's rows in order with wbin: the template's order, without
+//            atomics, so results repeat bit for bit.
+// Scratch (nz, 4, rows): q0, q1, p0, p1 of each layer, written once and read
+// once, coalesced in the thread order.
+// Outputs (rows/nG, nz+1) each: fup and fdn, weighted. Dynamic shared memory:
+// wbin (nG), vals (2, E + 1, blockDim).
+template <typename T>
+__global__ void ir_weighted_kernel(
+    const T* __restrict__ tau, const T* __restrict__ w0, const T* __restrict__ gt,
+    const T* __restrict__ emis, const T* __restrict__ bpl, const T* __restrict__ wbin_g,
+    int nG, int64_t rows, int nz, int hard, T tau_min, int E, T* __restrict__ scratch,
+    T* __restrict__ out_fup, T* __restrict__ out_fdn) {
+  constexpr int NOUT = 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int bd = blockDim.x, tid = threadIdx.x, slots = E + 1;
+  T* wbin = reinterpret_cast<T*>(smem_raw);
+  T* vals = wbin + nG;
+  for (int i = tid; i < nG; i += bd) wbin[i] = wbin_g[i];
+
+  const int64_t row = int64_t(blockIdx.x) * bd + tid;
+  const bool active = row < rows;
+  // this row's layer k of tau/w0/g, its Planck value at edge k
+  auto in = [&](const T* a, int k) { return a[row * nz + k]; };
+  auto edge = [&](int k) { return bpl[row * (nz + 1) + k]; };
+  const int64_t sk = 4 * rows;  // scratch: layer k's value v at sc[k * sk + v * rows]
+  T* sc = scratch + row;
+
+  // ---- forward: layer coefficients and elimination; q and p per layer ----
+  if (active) {
+    // surface boundary: reflectivity Rs and source Ss
+    const T em = emis[row], b_sfc = edge(nz);
+    T Rs = T(0), Ss;
+    if (hard) {
+      Rs = T(1) - em;
+      Ss = em * T(kPi) * b_sfc;
+    } else {
+      const T tb = in(tau, nz - 1);
+      const T b1_bot = (tb <= tau_min) ? T(0) : (b_sfc - edge(nz - 1)) / tb;
+      Ss = T(kPi) * (b_sfc + T(0.5) * b1_bot);
+    }
+    Layer<T, 1> cur, nxt;
+    T b_top = edge(1);  // the upper edge of layer k + 1
+    ir_layer<T>(in(tau, 0), in(w0, 0), in(gt, 0), edge(0), b_top, tau_min, cur);
+    T Aev = T(0), Bev = cur.e1, Dev = -cur.e2, Eev = -cur.cm0[0];
+    T p1prev = T(0), q1prev = T(0);
+    T ta = T(0), wa = T(0), ga = T(0), ba = T(0);  // layer k + 1: inputs, lower edge
+    if (nz > 1) { ta = in(tau, 1); wa = in(w0, 1); ga = in(gt, 1); ba = edge(2); }
+    for (int k = 0; k < nz; ++k) {
+      T Aod, Bod, Dod, Eod, nAev = T(0), nBev = T(0), nDev = T(0), nEev = T(0);
+      if (k < nz - 1) {
+        const T tk = ta, wk = wa, gk = ga, bk = ba;
+        if (k + 2 < nz) {
+          ta = in(tau, k + 2); wa = in(w0, k + 2); ga = in(gt, k + 2); ba = edge(k + 3);
+        }
+        ir_layer<T>(tk, wk, gk, b_top, bk, tau_min, nxt);
+        b_top = bk;
+        Aod = nxt.e2 * cur.e1 - cur.e3 * nxt.e4;
+        Bod = cur.e2 * nxt.e2 - cur.e4 * nxt.e4;
+        Dod = nxt.e1 * nxt.e4 - nxt.e2 * nxt.e3;
+        nAev = cur.e2 * cur.e3 - cur.e4 * cur.e1;
+        nBev = cur.e1 * nxt.e1 - cur.e3 * nxt.e3;
+        nDev = cur.e3 * nxt.e4 - cur.e1 * nxt.e2;
+        Eod = nxt.e2 * (nxt.cp0[0] - cur.cpb[0]) - nxt.e4 * (nxt.cm0[0] - cur.cmb[0]);
+        nEev = cur.e3 * (nxt.cp0[0] - cur.cpb[0]) + cur.e1 * (cur.cmb[0] - nxt.cm0[0]);
+      } else {
+        Aod = cur.e1 - Rs * cur.e3;
+        Bod = cur.e2 - Rs * cur.e4;
+        Dod = T(0);
+        Eod = Ss - cur.cpb[0] + Rs * cur.cmb[0];
+      }
+      // block k: M = [[Bev, Dev], [Aod, Bod]], L01 = Aev, U10 = Dod
+      T M00 = Bev - Aev * q1prev;
+      T inv_det = T(1) / (M00 * Bod - Dev * Aod);
+      T X00 = Bod * inv_det, X01 = -Dev * inv_det;
+      T X10 = -Aod * inv_det, X11 = M00 * inv_det;
+      T* s = sc + k * sk;
+      q1prev = X11 * Dod;
+      s[0] = X01 * Dod;
+      s[rows] = q1prev;
+      T f0 = Eev - Aev * p1prev;
+      s[2 * rows] = X00 * f0 + X01 * Eod;
+      p1prev = X10 * f0 + X11 * Eod;
+      s[3 * rows] = p1prev;
+      cur = nxt;
+      Aev = nAev; Bev = nBev; Dev = nDev; Eev = nEev;
+    }
+  }
+
+  // ---- backward: back substitution, edge fluxes and their reduction ----
+  const int64_t groups = rows / nG, grp0 = int64_t(blockIdx.x) * (bd / nG);
+  // layer k's scratch and inputs, read one layer ahead
+  T q0a = T(0), q1a = T(0), p0a = T(0), p1a = T(0), ta = T(0), wa = T(0), ga = T(0), ba = T(0);
+  auto fetch = [&](int k) {
+    const T* s = sc + k * sk;
+    q0a = s[0]; q1a = s[rows]; p0a = s[2 * rows]; p1a = s[3 * rows];
+    ta = in(tau, k); wa = in(w0, k); ga = in(gt, k); ba = edge(k);
+  };
+  T b_bot = T(0);  // the lower edge of layer k
+  if (active) {
+    b_bot = edge(nz);
+    fetch(nz - 1);
+  }
+  T unext = T(0);
+  int slot = 0, j0 = nz;
+  for (int k = nz - 1; k >= 0; --k) {
+    T top[NOUT], bot[NOUT];
+#pragma unroll
+    for (int o = 0; o < NOUT; ++o) { top[o] = T(0); bot[o] = T(0); }
+    if (active) {
+      const T q0 = q0a, q1 = q1a, p0 = p0a, p1 = p1a, tk = ta, wk = wa, gk = ga, bk = ba;
+      if (k > 0) fetch(k - 1);
+      T y1 = p0 - q0 * unext;
+      T y2 = p1 - q1 * unext;
+      unext = y1;
+      Layer<T, 1> c;
+      ir_layer<T>(tk, wk, gk, bk, b_bot, tau_min, c);
+      b_bot = bk;
+      top[0] = y1 * c.e3 - y2 * c.e4 + c.cp0[0];  // fup at the top edge; fdn there is 0
+      bot[0] = y1 * c.e1 + y2 * c.e2 + c.cpb[0];
+      bot[1] = y1 * c.e3 + y2 * c.e4 + c.cmb[0];
+    }
+#pragma unroll
+    for (int o = 0; o < NOUT; ++o) vals[(o * slots + slot) * bd + tid] = bot[o];
+    ++slot;
+    if (k == 0) {
+#pragma unroll
+      for (int o = 0; o < NOUT; ++o) vals[(o * slots + slot) * bd + tid] = top[o];
+      ++slot;
+    }
+    if (slot >= E || k == 0) {  // the same at every thread
+      __syncthreads();
+      reduce_edges<T, NOUT, false>(vals, slots, slot, j0, nullptr, wbin, 1, nG, grp0, groups,
+                                   nz, out_fup, out_fdn, nullptr);
+      __syncthreads();
+      j0 -= slot;
+      slot = 0;
+    }
+  }
+}
+
+constexpr int kIrThreads = 128;  // threads a block aims at (whole gauss groups)
+constexpr int kIrEdges = 16;     // edges reduced per pair of block barriers, at most
+
+// scratch (nz, 4, rows); a gauss group must fit one block
+template <typename T>
+int launch_ir_weighted(const void* tau, const void* w0, const void* gt, const void* emis,
+                       const void* bpl, const void* wbin, int nG, long long rows, int nz,
+                       int hard, double tau_min, void* scratch, void* out_fup, void* out_fdn,
+                       cudaStream_t stream) {
+  constexpr int NOUT = 2;
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, ir_weighted_kernel<T>);
+  if (err != cudaSuccess) return int(err);
+  if (nG < 1 || nG > attr.maxThreadsPerBlock) return int(cudaErrorInvalidConfiguration);
+  int per = kIrThreads / nG;
+  if (per < 1) per = 1;
+  const int threads = per * nG;
+  const long long blocks = (rows / nG + per - 1) / per;
+  // edges per reduction: as many as fit beside wbin in the 48 KB of dynamic
+  // shared memory a launch gets by default, 1 to kIrEdges
+  const size_t per_slot = size_t(NOUT) * threads * sizeof(T);
+  int E = int((48 * 1024 - size_t(nG) * sizeof(T)) / per_slot) - 1;
+  E = E < 1 ? 1 : (E > kIrEdges ? kIrEdges : E);
+  const size_t smem = size_t(nG) * sizeof(T) + (E + 1) * per_slot;
+  ir_weighted_kernel<T><<<dim3(unsigned(blocks)), threads, smem, stream>>>(
+      (const T*)tau, (const T*)w0, (const T*)gt, (const T*)emis, (const T*)bpl, (const T*)wbin,
+      nG, rows, nz, hard, T(tau_min), E, (T*)scratch, (T*)out_fup, (T*)out_fdn);
+  return int(cudaGetLastError());
+}
+
 template <typename T>
 int dispatch_weighted(int solar, int with_amean, const void* tau, const void* w0,
                       const void* gt, const void* surf, const void* bpl, const void* u0s,
@@ -699,9 +842,8 @@ int dispatch_weighted(int solar, int with_amean, const void* tau, const void* w0
                       int nz, int hard, double tau_min, void* scratch, void* out_am,
                       void* out_fup, void* out_fdn, cudaStream_t s) {
   if (!solar)
-    return launch<T, false, false, 1, true, false>(tau, w0, gt, surf, bpl, nullptr, 1, wbin, nG,
-                                                   rows, nz, hard, tau_min, scratch, nullptr,
-                                                   out_fup, out_fdn, nullptr, s);
+    return launch_ir_weighted<T>(tau, w0, gt, surf, bpl, wbin, nG, rows, nz, hard, tau_min,
+                                 scratch, out_fup, out_fdn, s);
   if (with_amean)
     return launch_solar_weighted<T, true>(tau, w0, gt, surf, u0s, zw, nzen, wbin, nG, rows, nz,
                                           scratch, out_am, out_fup, out_fdn, s);
@@ -714,13 +856,13 @@ int dispatch_rows(int solar, int u0_per_row, const void* tau, const void* w0, co
                   const void* surf, const void* bpl, const void* u0, int nzen, long long rows,
                   int nz, int hard, double tau_min, void* scratch, void* out_am, void* out_fup,
                   void* out_fdn, void* out_srad, cudaStream_t s) {
-#define CLIMA_ARGS tau, w0, gt, surf, bpl, u0, nzen, nullptr, 1, rows, nz, hard, tau_min, \
-                   scratch, out_am, out_fup, out_fdn, out_srad, s
-  if (!solar) return launch<T, false, false, 1, false, false>(CLIMA_ARGS);
-  if (u0_per_row) return launch<T, true, true, 1, false, true>(CLIMA_ARGS);
+#define CLIMA_ARGS tau, w0, gt, surf, bpl, u0, nzen, rows, nz, hard, tau_min, scratch, out_am, \
+                   out_fup, out_fdn, out_srad, s
+  if (!solar) return launch<T, false, false, 1, false>(CLIMA_ARGS);
+  if (u0_per_row) return launch<T, true, true, 1, true>(CLIMA_ARGS);
   if (nzen < 1 || nzen > 8) return int(cudaErrorInvalidValue);
-  if (nzen <= 4) return launch<T, true, true, 4, false, false>(CLIMA_ARGS);
-  return launch<T, true, true, 8, false, false>(CLIMA_ARGS);
+  if (nzen <= 4) return launch<T, true, true, 4, false>(CLIMA_ARGS);
+  return launch<T, true, true, 8, false>(CLIMA_ARGS);
 #undef CLIMA_ARGS
 }
 
@@ -732,8 +874,9 @@ int dispatch_rows(int solar, int u0_per_row, const void* tau, const void* w0, co
 
 // Weighted: u0s/zw (nzen,) (solar only), wbin (nG,), outputs (rows/nG, nz+1).
 // Scratch: IR (nz, 4, rows); solar nz * rows * (3 + 2*nzen) values (q, tauc,
-// p). Requires rows % nG == 0, 1 <= nG <= 1024, nz >= 1 and, for solar,
-// nG * nzen <= clima_twostream_solar_max_group(...).
+// p). Requires rows % nG == 0, 1 <= nG <= 1024, nz >= 1; for IR, nG at most
+// the IR kernel's block (its registers bound it; an error otherwise); for
+// solar, nG * nzen <= clima_twostream_solar_max_group(...).
 extern "C" int clima_twostream_weighted(int is_f64, int solar, int with_amean,
                                         const void* tau, const void* w0, const void* gt,
                                         const void* surf, const void* bpl, const void* u0s,

@@ -13,15 +13,16 @@ for tensors on a CUDA device; there is no fallback between the two.
 
 What bounds the kernels on an H100, and what the designs do about it, is
 described in ``csrc/twostream.cu``. Every kernel runs a 2x2-block Thomas
-elimination down each column and back. The weighted solar kernel gives each
-(row, zenith) pair a thread and fuses the back substitution with the edge
-fluxes, so it takes any number of zenith angles; the template behind the
-other four gives each (column, bin, gauss) row a thread, carrying up to 8
-zenith angles in registers (more run as groups of 8). The weighted kernels
-sum zeniths and gauss points in shared memory in a fixed order, with no
-atomics, so the (rows, nz+1) per-row fluxes never reach device memory; the
-unreduced kernels store each row's fluxes. :func:`solar_weighted_schedule_ref`
-is a plain model of the weighted solar kernel's schedule, for the tests.
+elimination down each column and back. The two weighted kernels fuse the back
+substitution with the edge fluxes: the solar one gives each (row, zenith)
+pair a thread, so it takes any number of zenith angles, the IR one each
+(column, bin, gauss) row. They sum zeniths and gauss points in shared memory
+in a fixed order, with no atomics, so the (rows, nz+1) per-row fluxes never
+reach device memory. The row template behind the three unreduced kernels
+gives each row a thread, carrying up to 8 zenith angles in registers (more
+run as groups of 8), and stores each row's fluxes.
+:func:`ir_weighted_schedule_ref` and :func:`solar_weighted_schedule_ref` are
+plain models of the weighted kernels' schedules, for the tests.
 
 ``launches`` on each wrapper counts its kernel launches.
 """
@@ -31,11 +32,12 @@ from __future__ import annotations
 import torch
 
 from . import twostream as ts
+from .. import constants as const
 from .cuda_build import load_library
 
 __all__ = ["two_stream_ir_weighted_cuda", "two_stream_solar_multi_weighted_cuda",
            "two_stream_ir_auto", "two_stream_solar_multi_auto", "two_stream_solar_auto",
-           "solar_weighted_schedule_ref"]
+           "ir_weighted_schedule_ref", "solar_weighted_schedule_ref"]
 
 
 # zenith angles of one launch of the unreduced kernel (its largest instance)
@@ -73,8 +75,8 @@ def _launch(solar, with_amean, tau, w0, gt, surf, bpl, u0s, zw, wbin, hard, tau_
     if not (1 <= nG <= 1024) or rows % nG:
         raise ValueError(f"rows ({rows}) must be whole gauss groups of 1..1024 (nG={nG})")
     kw = dict(dtype=tau.dtype, device=tau.device)
-    # IR: the template's (nz, q0 q1 p0 p1, rows); solar: q (nz, 2, rows),
-    # tauc (nz, rows) and p (nz, 2, rows * nzen)
+    # IR: (nz, q0 q1 p0 p1, rows); solar: q (nz, 2, rows), tauc (nz, rows)
+    # and p (nz, 2, rows * nzen)
     scratch = torch.empty(nz * rows * (3 + 2 * nzen) if solar else (nz, 4, rows), **kw)
     outs = [torch.empty((rows // nG, nz + 1), **kw) for _ in range(3 if with_amean else 2)]
     am = outs[2].data_ptr() if with_amean else None
@@ -97,7 +99,9 @@ def two_stream_ir_weighted_cuda(tau, w0, gt, emissivity, has_hard_surface, tau_m
 
     tau/w0/gt (rows, nz) group-major (rows = groups*nG), emissivity (rows,),
     bplanck (rows, nz+1), wbin (nG,). Returns (fup_w, fdn_w), each
-    (groups, nz+1), TOA-down. Twin: :func:`.twostream.two_stream_ir_weighted`.
+    (groups, nz+1), TOA-down. On the card a gauss group must fit one block of
+    the kernel. Twin: :func:`.twostream.two_stream_ir_weighted`; plain model of
+    the kernel's schedule: :func:`ir_weighted_schedule_ref`.
     """
     if tau.device.type == "cpu":
         return ts.two_stream_ir_weighted(tau, w0, gt, emissivity, has_hard_surface,
@@ -394,3 +398,107 @@ def solar_weighted_schedule_ref(tau, w0, gt, u0s, Rsfc, zw, wbin, with_amean=Tru
                 out[o][0] = reduce(top[o])
     fup, fdn, *am = (torch.stack(edges, dim=-1) for edges in out)
     return (am[0] if with_amean else None), fup, fdn
+
+
+def _ir_layer_ref(tau, w0, gt, b_top, b_bot, tau_min):
+    """One layer's coefficients as the kernel's ``ir_layer`` forms them, each
+    (rows, 1): e1-e4 and the Planck sources cp0, cpb, cm0, cmb."""
+    gam1 = 2.0 - w0 * (1.0 + gt)
+    gam2 = w0 * (1.0 - gt)
+    lam = torch.sqrt(gam1 * gam1 - gam2 * gam2)
+    e1, e2, e3, e4 = ts._es(lam, gam2 / (gam1 + lam), tau)
+    thin = tau <= tau_min
+    b0n = torch.where(thin, 0.5 * (b_top + b_bot), b_top)
+    b1n = torch.where(thin, torch.zeros_like(tau),
+                      (b_bot - b_top) / torch.where(thin, torch.ones_like(tau), tau))
+    inv_g = 1.0 / (gam1 + gam2)
+    norm = const.pi  # 2 pi u1, u1 = 0.5
+    return dict(e1=e1, e2=e2, e3=e3, e4=e4, cp0=norm * (b0n + b1n * inv_g),
+                cpb=norm * (b0n + b1n * (tau + inv_g)), cm0=norm * (b0n - b1n * inv_g),
+                cmb=norm * (b0n + b1n * (tau - inv_g)))
+
+
+def ir_weighted_schedule_ref(tau, w0, gt, emissivity, has_hard_surface, tau_min, bplanck,
+                             wbin, edges=16):
+    """Plain PyTorch model of the weighted IR kernel's schedule, for the
+    tests; no path calls it. Same arguments and outputs as
+    :func:`two_stream_ir_weighted_cuda`; ``edges``: edges staged per
+    reduction (the kernel's kIrEdges).
+
+    Rows are a tensor axis where the kernel has a thread per row. The forward
+    pass loops over layers top to bottom: layer coefficients, the 2x2-block
+    Thomas elimination, and q and p stored per layer. The backward pass,
+    bottom to top, forms u_k = p_k - q_k u_{k+1}[0], recomputes the layer's
+    coefficients and stages its edge fluxes; every ``edges`` edges (and after
+    the top layer) each staged edge is reduced over the gauss rows of each
+    group in order with wbin, the kernel's order.
+    """
+    rows, nz = tau.shape
+    nG = wbin.shape[0]
+    col = lambda x, k: x[:, k:k + 1]
+    layer = lambda k: _ir_layer_ref(col(tau, k), col(w0, k), col(gt, k), col(bplanck, k),
+                                    col(bplanck, k + 1), tau_min)
+    zero = torch.zeros((rows, 1), dtype=tau.dtype, device=tau.device)
+    em, b_sfc = emissivity[:, None], col(bplanck, nz)
+    if has_hard_surface:
+        Rs, Ss = 1.0 - em, em * const.pi * b_sfc
+    else:
+        tb = col(tau, nz - 1)
+        thin = tb <= tau_min
+        b1_bot = torch.where(thin, zero, (b_sfc - col(bplanck, nz - 1))
+                             / torch.where(thin, torch.ones_like(tb), tb))
+        Rs, Ss = zero, const.pi * (b_sfc + 0.5 * b1_bot)
+
+    q, p = [None] * nz, [None] * nz
+    cur = layer(0)
+    Aev, Bev, Dev, Eev, p1prev, q1prev = zero, cur["e1"], -cur["e2"], -cur["cm0"], zero, zero
+    for k in range(nz):
+        c = cur
+        if k < nz - 1:
+            n = layer(k + 1)
+            Aod = n["e2"] * c["e1"] - c["e3"] * n["e4"]
+            Bod = c["e2"] * n["e2"] - c["e4"] * n["e4"]
+            Dod = n["e1"] * n["e4"] - n["e2"] * n["e3"]
+            Eod = n["e2"] * (n["cp0"] - c["cpb"]) - n["e4"] * (n["cm0"] - c["cmb"])
+            nxt_ev = (c["e2"] * c["e3"] - c["e4"] * c["e1"], c["e1"] * n["e1"] - c["e3"] * n["e3"],
+                      c["e3"] * n["e4"] - c["e1"] * n["e2"],
+                      c["e3"] * (n["cp0"] - c["cpb"]) + c["e1"] * (c["cmb"] - n["cm0"]))
+        else:
+            Aod, Bod, Dod = c["e1"] - Rs * c["e3"], c["e2"] - Rs * c["e4"], zero
+            Eod = Ss - c["cpb"] + Rs * c["cmb"]
+        M00 = Bev - Aev * q1prev
+        inv_det = 1.0 / (M00 * Bod - Dev * Aod)
+        X00, X01, X10, X11 = Bod * inv_det, -Dev * inv_det, -Aod * inv_det, M00 * inv_det
+        q1prev = X11 * Dod
+        q[k] = (X01 * Dod, q1prev)
+        f0 = Eev - Aev * p1prev
+        p1prev = X10 * f0 + X11 * Eod
+        p[k] = (X00 * f0 + X01 * Eod, p1prev)
+        if k < nz - 1:
+            cur = n
+            Aev, Bev, Dev, Eev = nxt_ev
+
+    def reduce(v):  # (rows, 1) -> (groups,): the gauss rows of each group in order
+        v = v.reshape(-1, nG)
+        s = torch.zeros(v.shape[0], dtype=tau.dtype, device=tau.device)
+        for g in range(nG):
+            s = s + wbin[g] * v[:, g]
+        return s
+
+    fup, fdn = [None] * (nz + 1), [None] * (nz + 1)
+    staged = []  # (edge, fup, fdn) of the edges not yet reduced
+    unext = zero
+    for k in range(nz - 1, -1, -1):
+        y1 = p[k][0] - q[k][0] * unext
+        y2 = p[k][1] - q[k][1] * unext
+        unext = y1
+        c = layer(k)
+        staged.append((k + 1, y1 * c["e1"] + y2 * c["e2"] + c["cpb"],
+                       y1 * c["e3"] + y2 * c["e4"] + c["cmb"]))
+        if k == 0:
+            staged.append((0, y1 * c["e3"] - y2 * c["e4"] + c["cp0"], zero))
+        if len(staged) >= edges or k == 0:
+            for j, up, dn in staged:
+                fup[j], fdn[j] = reduce(up), reduce(dn)
+            staged = []
+    return torch.stack(fup, dim=-1), torch.stack(fdn, dim=-1)

@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain twins on the card (float64,
-RORR and the weighted solar kernel also in float32, RORR on ties; small
-shapes), the nbin > 16 RORR routing and AdiabatClimate on the card. Skipped
-where no CUDA device is present; on a GPU machine:
+RORR and the weighted kernels also in float32, RORR on ties; small shapes),
+the nbin > 16 RORR routing and AdiabatClimate on the card. Skipped where no
+CUDA device is present; on a GPU machine:
 ``python -m pytest --noconftest tests/test_torch_cuda.py -m cuda`` (the
 suite's conftest configures JAX, which a GPU machine need not have)."""
 
@@ -45,18 +45,42 @@ def _close(got, want):
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=1e-9, atol=1e-12)
 
 
+def _planck_rows(nw, nG, nz, rng):
+    """(nw * nG, nz + 1) Planck values as the radiate module forms them: per
+    gauss group one frequency and a 290 -> 180 K column, jittered."""
+    T_col = np.linspace(290.0, 180.0, nz + 1)[None, :] + rng.uniform(-5.0, 5.0, (nw, 1))
+    freq = 10.0 ** rng.uniform(12.5, 14.0, (nw, 1))
+    return np.repeat(eqns.planck_fcn(torch.tensor(freq), torch.tensor(T_col)).numpy(), nG, axis=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("nz", [21, 37, 202])
+@pytest.mark.parametrize("nG", [1, 4, 8, 16])
 @pytest.mark.parametrize("hard", [True, False])
-def test_ir_weighted_kernel_matches_twin(dev, hard):
-    nw, nG, nz = 5, 8, 21
+def test_ir_weighted_kernel_matches_twin(dev, hard, nG, nz, dtype):
+    """128 // nG + 3 gauss groups, so the last block of whole groups (128
+    threads) is partial, with a thin layer; two calls give bitwise equal
+    outputs. float64: random Planck values, rtol 1e-9. float32: the Planck
+    function of a temperature column, held at 1e-4 of the largest value (with
+    random Planck values the linear-in-tau source of thin layers cancels in
+    float32, in the twin alike, up to ~4e-4 of the largest value)."""
+    nw = 128 // nG + 3
     tau, w0, gt = _atm(nw * nG, nz, dev, 7)
     rng = np.random.default_rng(8)
-    t = lambda x: torch.tensor(x, device=dev)
-    args = (tau, w0, gt, t(rng.uniform(0.8, 1.0, nw * nG)), hard, 1e-6,
-            t(rng.uniform(1e-2, 1.0, (nw * nG, nz + 1))),
+    t = lambda x: torch.tensor(x, dtype=dtype, device=dev)
+    emis = rng.uniform(0.8, 1.0, nw * nG)
+    bpl = rng.uniform(1e-2, 1.0, (nw * nG, nz + 1)) if dtype == torch.float64 else \
+        _planck_rows(nw, nG, nz, rng)
+    args = (tau.to(dtype), w0.to(dtype), gt.to(dtype), t(emis), hard, 1e-6, t(bpl),
             t(np.polynomial.legendre.leggauss(nG)[1] / 2.0))
     n = twostream_cuda.two_stream_ir_weighted_cuda.launches
-    _close(twostream_cuda.two_stream_ir_weighted_cuda(*args), twostream.two_stream_ir_weighted(*args))
+    got = twostream_cuda.two_stream_ir_weighted_cuda(*args)
     assert twostream_cuda.two_stream_ir_weighted_cuda.launches == n + 1
+    assert got[0].dtype == dtype and got[0].shape == (nw, nz + 1)
+    again = twostream_cuda.two_stream_ir_weighted_cuda(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = twostream.two_stream_ir_weighted(*args)
+    (_close if dtype == torch.float64 else _close_f32)(got, want)
 
 
 def _close_f32(got, want):

@@ -1,8 +1,8 @@
 """Two-stream twins of the PyTorch port against clima_tpu (float64, CPU):
 the XLA-path twins at rtol 1e-12 (same math), the Pallas kernels in
 interpret mode at rtol 1e-9 / atol 1e-12 (the JAX tests' own bound), the
-plain model of the weighted solar kernel's schedule at that bound, the
-zenith grouping of the kernel wrappers, and their CPU dispatch."""
+plain models of the weighted IR and solar kernels' schedules at that bound,
+the zenith grouping of the kernel wrappers, and their CPU dispatch."""
 
 import functools
 from unittest import mock
@@ -10,6 +10,7 @@ from unittest import mock
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 import jax.experimental.pallas as pl
 
@@ -102,6 +103,35 @@ def test_solar_multi_weighted_matches_reference(interpret, with_amean):
     wrapped = tc.two_stream_solar_multi_weighted_cuda(*T(tau, w0, gt, u0s, rs, zw, wbin),
                                                       with_amean=with_amean)
     _close(wrapped, [None if g is None else g.numpy() for g in got], 0.0, 0.0)
+
+
+_ir_weighted_xla = jax.jit(ref_ts.two_stream_ir_weighted, static_argnums=(4, 5))
+
+
+@pytest.mark.parametrize("nG, nz, hard", [(1, 21, True), (1, 37, False), (4, 21, False),
+                                           (4, 37, True), (8, 21, True), (8, 37, False),
+                                           (16, 21, False), (16, 37, True)])
+def test_ir_weighted_schedule_ref_matches_reference(interpret, nG, nz, hard):
+    """The plain model of the weighted IR kernel's schedule (a thread per row,
+    back substitution fused with the edge fluxes, 16 edges staged per
+    reduction, the gauss rows summed in order) against the JAX package's
+    Pallas kernel in interpret mode and its XLA path, with a thin layer, at
+    layer counts that are no multiple of 16: every gauss group size with a
+    hard and a soft surface, every layer count with both."""
+    nw = 3
+    B = nw * nG
+    tau, w0, gt = _atm(B, nz, seed=40 + nG + nz)
+    tau[2, 5] = 1e-7  # the thin-layer branch
+    rng = np.random.default_rng(41)
+    emis, bpl = rng.uniform(0.8, 1.0, B), rng.uniform(1e-2, 1.0, (B, nz + 1))
+    wbin = np.polynomial.legendre.leggauss(nG)[1] / 2.0
+    ref_args = lambda a: (*a[:4], hard, 1e-6, *a[4:])
+    got = tc.ir_weighted_schedule_ref(*ref_args(T(tau, w0, gt, emis, bpl, wbin)))
+    assert got[0].shape == (nw, nz + 1)
+    kern = pts.two_stream_ir_weighted_pallas(*ref_args(J(tau, w0, gt, emis, bpl, wbin)))
+    xla = _ir_weighted_xla(*ref_args(J(tau, w0, gt, emis, bpl, wbin)))
+    _close(got, kern, RTOL_KERNEL, ATOL_KERNEL)
+    _close(got, xla, RTOL_KERNEL, ATOL_KERNEL)
 
 
 @pytest.mark.parametrize("with_amean", [True, False])
