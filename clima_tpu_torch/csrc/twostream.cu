@@ -649,164 +649,290 @@ int launch_solar_weighted(const void* tau, const void* w0, const void* gt, const
 //
 // What held the row template back for this solve: two block barriers per
 // edge (~400 per thread at nz 202), with one thread in nG summing its group
-// in series between them; and three passes over a (nz, 4, rows) scratch (p
-// and q written, p rewritten as u, u read again), with the inputs read twice.
+// in series between them; three passes over a (nz, 4, rows) scratch (p and q
+// written, p rewritten as u, u read again); and the (rows, nz) inputs read
+// twice by a thread per row, each warp load touching 32 sectors nz values
+// apart. On an H100 a two-pass kernel reading its inputs that way took
+// nearly twice as long as the same kernel reading them transposed,
+// (nz, rows): the L1 does not hide the stride.
 //
 // Design. One thread owns one (column, bin, gauss point) row; a block holds
 // whole gauss groups (about kIrThreads threads). It runs the template's
-// 2x2-block Thomas elimination, its operations unchanged, in two passes:
-//   forward: the layer coefficients (the next layer's inputs read one layer
-//            ahead) and the elimination, top to bottom; each layer's q and p
-//            stored once.
-//   backward (bottom to top, scratch and inputs read one layer ahead):
+// 2x2-block Thomas elimination, its operations unchanged, in two passes.
+// Each warp reads the inputs of its 32 rows in chunks of kIrLayers layers
+// through two tiles of its own in shared memory: while it works on one
+// chunk, cp.async copies the next into the other tile, coalesced
+// (neighbouring lanes copy neighbouring layers of one row) and without
+// holding registers; a lane then reads its row's column of the tile. Warps
+// synchronise only with themselves there.
+//   forward: top to bottom, the layer coefficients and the elimination; each
+//            layer's q and p stored once.
+//   backward (bottom to top, scratch read one layer ahead):
 //            u_k = p_k - q_k * u_{k+1}[0], the layer's coefficients
 //            recomputed (bit-identical to the forward's: an IR layer needs
 //            only its own tau, w0, g and two Planck values), and its edge
-//            fluxes put in shared memory. Every kIrEdges edges (fewer where
-//            the block's values would pass 48 KB), between two block
-//            barriers, one thread per (gauss group, edge, output) sums the
-//            group's rows in order with wbin: the template's order, without
-//            atomics, so results repeat bit for bit.
+//            fluxes put in shared memory. Every kIrEdges edges, between two
+//            block barriers, one thread per (gauss group, edge, output) sums
+//            the staged edges over the group's rows in order with wbin: the
+//            template's order, without atomics, so results repeat bit for
+//            bit.
 // Scratch (nz, 4, rows): q0, q1, p0, p1 of each layer, written once and read
-// once, coalesced in the thread order.
-// Outputs (rows/nG, nz+1) each: fup and fdn, weighted. Dynamic shared memory:
-// wbin (nG), vals (2, E + 1, blockDim).
+// once, coalesced in the thread order. What bounds it is not apportioned: at
+// the radtran path's shape it takes ~8x its bytes bound, ~1.5x the two-pass
+// kernel on transposed inputs; in float64 a block's 88 KB of shared memory
+// leave room for 2 blocks (8 warps) an SM, each thread a dependent chain of
+// divides, sqrt and exp per layer.
+
+// An asynchronous copy of one value from device to shared memory (cp.async:
+// no register holds it while it is in flight); copy_commit closes this
+// thread's group of copies, copy_wait waits for all its groups.
 template <typename T>
+__device__ __forceinline__ void copy_async(T* dst, const T* src) {
+#if defined(__CUDA_ARCH__)
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src),
+               "n"(int(sizeof(T))));
+#else
+  *dst = *src;
+#endif
+}
+
+__device__ __forceinline__ void copy_commit() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.commit_group;\n" ::);
+#endif
+}
+
+__device__ __forceinline__ void copy_wait() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_group 0;\n" ::);
+#endif
+}
+
+constexpr int kIrThreads = 128;  // threads a block aims at (whole gauss groups)
+constexpr int kIrLayers = 8;     // layers per tile (1 where 8 do not fit: large gauss groups)
+constexpr int kIrEdges = 8;      // edges per reduction
+
+// Outputs (rows/nG, nz+1) each: fup and fdn, weighted. Dynamic shared memory:
+// wbin (nG), two tiles (4, TK, 32 + 16 bytes' worth) per warp (the pad keeps
+// the copies into a tile apart in the banks), the staged fluxes
+// (2, kIrEdges + 1, blockDim).
+template <typename T, int TK>
 __global__ void ir_weighted_kernel(
     const T* __restrict__ tau, const T* __restrict__ w0, const T* __restrict__ gt,
     const T* __restrict__ emis, const T* __restrict__ bpl, const T* __restrict__ wbin_g,
-    int nG, int64_t rows, int nz, int hard, T tau_min, int E, T* __restrict__ scratch,
+    int nG, int64_t rows, int nz, int hard, T tau_min, T* __restrict__ scratch,
     T* __restrict__ out_fup, T* __restrict__ out_fdn) {
-  constexpr int NOUT = 2;
+  constexpr int NOUT = 2, slots = kIrEdges + 1;
+  constexpr int LDW = 32 + int(16 / sizeof(T)), WTILE = 4 * TK * LDW;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int bd = blockDim.x, tid = threadIdx.x, slots = E + 1;
+  const int bd = blockDim.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   T* wbin = reinterpret_cast<T*>(smem_raw);
-  T* vals = wbin + nG;
+  T* tiles = wbin + nG + warp * 2 * WTILE;  // this warp's two
+  T* vals = wbin + nG + ((bd + 31) / 32) * 2 * WTILE;
   for (int i = tid; i < nG; i += bd) wbin[i] = wbin_g[i];
 
-  const int64_t row = int64_t(blockIdx.x) * bd + tid;
-  const bool active = row < rows;
-  // this row's layer k of tau/w0/g, its Planck value at edge k
-  auto in = [&](const T* a, int k) { return a[row * nz + k]; };
-  auto edge = [&](int k) { return bpl[row * (nz + 1) + k]; };
+  const int64_t row0 = int64_t(blockIdx.x) * bd, row = row0 + tid;
+  const int nrows = int(rows - row0 < bd ? rows - row0 : bd);
+  const bool active = tid < nrows;
+  const int wlanes = bd - 32 * warp < 32 ? bd - 32 * warp : 32;  // the warp's threads
+  const unsigned wmask = wlanes == 32 ? 0xffffffffu : (1u << wlanes) - 1u;
+  const int wrows = nrows - 32 * warp < 0 ? 0 : (nrows - 32 * warp < 32 ? nrows - 32 * warp : 32);
+  const int64_t wrow0 = row0 + 32 * warp;
+  // Chunk c's layers k0 .. k0 + n - 1, counted from the top (forward) or
+  // from the bottom (up: backward).
+  auto chunk = [&](int c, bool up, int& k0, int& n) {
+    const int k1 = up ? nz - c * TK : (c + 1) * TK;
+    k0 = up ? (k1 > TK ? k1 - TK : 0) : c * TK;
+    n = (k1 < nz ? k1 : nz) - k0;
+  };
+  // Start copying chunk c's tau/w0/g and Planck edges (the lower ones going
+  // down, the upper ones going up) of the warp's rows into tile c % 2; lane
+  // l copies elements l, l + wlanes, ... of the (row, layer) tile, row-major.
+  auto fetch_tile = [&](int c, bool up) {
+    int k0, n;
+    chunk(c, up, k0, n);
+    const int eoff = up ? 0 : 1;
+    T* t = tiles + (c & 1) * WTILE;
+    for (int i = lane; i < wrows * TK; i += wlanes) {
+      const int r = i / TK, kk = i % TK;
+      if (kk < n) {
+        const int64_t g = (wrow0 + r) * nz + k0 + kk;
+        copy_async(t + kk * LDW + r, tau + g);
+        copy_async(t + (TK + kk) * LDW + r, w0 + g);
+        copy_async(t + (2 * TK + kk) * LDW + r, gt + g);
+        copy_async(t + (3 * TK + kk) * LDW + r, bpl + (wrow0 + r) * (nz + 1) + k0 + eoff + kk);
+      }
+    }
+    copy_commit();
+  };
+  // wait for tile c, and let the next copy start once every lane is done
+  // with tile c - 1, whose buffer it takes
+  const int nch = (nz + TK - 1) / TK;
+  auto next_tile = [&](int c, bool up) {
+    copy_wait();
+    __syncwarp(wmask);
+    if (c + 1 < nch) fetch_tile(c + 1, up);
+  };
+  // this row's value a (tau, w0, g, Planck) at layer kk of tile c
+  auto at = [&](int c, int a, int kk) { return tiles[(c & 1) * WTILE + (a * TK + kk) * LDW + lane]; };
   const int64_t sk = 4 * rows;  // scratch: layer k's value v at sc[k * sk + v * rows]
   T* sc = scratch + row;
 
   // ---- forward: layer coefficients and elimination; q and p per layer ----
+  fetch_tile(0, false);
+  // surface boundary: reflectivity Rs and source Ss
+  T Rs = T(0), Ss = T(0), b_top = T(0);  // b_top: the upper Planck edge of the next layer
   if (active) {
-    // surface boundary: reflectivity Rs and source Ss
-    const T em = emis[row], b_sfc = edge(nz);
-    T Rs = T(0), Ss;
+    const T* b = bpl + row * (nz + 1);
+    const T em = emis[row];
     if (hard) {
       Rs = T(1) - em;
-      Ss = em * T(kPi) * b_sfc;
+      Ss = em * T(kPi) * b[nz];
     } else {
-      const T tb = in(tau, nz - 1);
-      const T b1_bot = (tb <= tau_min) ? T(0) : (b_sfc - edge(nz - 1)) / tb;
-      Ss = T(kPi) * (b_sfc + T(0.5) * b1_bot);
+      const T tb = tau[row * nz + nz - 1];
+      const T b1_bot = (tb <= tau_min) ? T(0) : (b[nz] - b[nz - 1]) / tb;
+      Ss = T(kPi) * (b[nz] + T(0.5) * b1_bot);
     }
-    Layer<T, 1> cur, nxt;
-    T b_top = edge(1);  // the upper edge of layer k + 1
-    ir_layer<T>(in(tau, 0), in(w0, 0), in(gt, 0), edge(0), b_top, tau_min, cur);
-    T Aev = T(0), Bev = cur.e1, Dev = -cur.e2, Eev = -cur.cm0[0];
-    T p1prev = T(0), q1prev = T(0);
-    T ta = T(0), wa = T(0), ga = T(0), ba = T(0);  // layer k + 1: inputs, lower edge
-    if (nz > 1) { ta = in(tau, 1); wa = in(w0, 1); ga = in(gt, 1); ba = edge(2); }
-    for (int k = 0; k < nz; ++k) {
-      T Aod, Bod, Dod, Eod, nAev = T(0), nBev = T(0), nDev = T(0), nEev = T(0);
-      if (k < nz - 1) {
-        const T tk = ta, wk = wa, gk = ga, bk = ba;
-        if (k + 2 < nz) {
-          ta = in(tau, k + 2); wa = in(w0, k + 2); ga = in(gt, k + 2); ba = edge(k + 3);
-        }
-        ir_layer<T>(tk, wk, gk, b_top, bk, tau_min, nxt);
-        b_top = bk;
-        Aod = nxt.e2 * cur.e1 - cur.e3 * nxt.e4;
-        Bod = cur.e2 * nxt.e2 - cur.e4 * nxt.e4;
-        Dod = nxt.e1 * nxt.e4 - nxt.e2 * nxt.e3;
-        nAev = cur.e2 * cur.e3 - cur.e4 * cur.e1;
-        nBev = cur.e1 * nxt.e1 - cur.e3 * nxt.e3;
-        nDev = cur.e3 * nxt.e4 - cur.e1 * nxt.e2;
-        Eod = nxt.e2 * (nxt.cp0[0] - cur.cpb[0]) - nxt.e4 * (nxt.cm0[0] - cur.cmb[0]);
-        nEev = cur.e3 * (nxt.cp0[0] - cur.cpb[0]) + cur.e1 * (cur.cmb[0] - nxt.cm0[0]);
+    b_top = b[0];
+  }
+  Layer<T, 1> cur, nxt;
+  T Aev = T(0), Bev = T(0), Dev = T(0), Eev = T(0), p1prev = T(0), q1prev = T(0);
+  // elimination step k: layer k (cur) with layer k + 1 (nxt) or the surface
+  auto eliminate = [&](int k, bool surface) {
+    T Aod, Bod, Dod, Eod, nAev = T(0), nBev = T(0), nDev = T(0), nEev = T(0);
+    if (!surface) {
+      Aod = nxt.e2 * cur.e1 - cur.e3 * nxt.e4;
+      Bod = cur.e2 * nxt.e2 - cur.e4 * nxt.e4;
+      Dod = nxt.e1 * nxt.e4 - nxt.e2 * nxt.e3;
+      nAev = cur.e2 * cur.e3 - cur.e4 * cur.e1;
+      nBev = cur.e1 * nxt.e1 - cur.e3 * nxt.e3;
+      nDev = cur.e3 * nxt.e4 - cur.e1 * nxt.e2;
+      Eod = nxt.e2 * (nxt.cp0[0] - cur.cpb[0]) - nxt.e4 * (nxt.cm0[0] - cur.cmb[0]);
+      nEev = cur.e3 * (nxt.cp0[0] - cur.cpb[0]) + cur.e1 * (cur.cmb[0] - nxt.cm0[0]);
+    } else {
+      Aod = cur.e1 - Rs * cur.e3;
+      Bod = cur.e2 - Rs * cur.e4;
+      Dod = T(0);
+      Eod = Ss - cur.cpb[0] + Rs * cur.cmb[0];
+    }
+    // block k: M = [[Bev, Dev], [Aod, Bod]], L01 = Aev, U10 = Dod
+    T M00 = Bev - Aev * q1prev;
+    T inv_det = T(1) / (M00 * Bod - Dev * Aod);
+    T X00 = Bod * inv_det, X01 = -Dev * inv_det;
+    T X10 = -Aod * inv_det, X11 = M00 * inv_det;
+    T* s = sc + k * sk;
+    q1prev = X11 * Dod;
+    s[0] = X01 * Dod;
+    s[rows] = q1prev;
+    T f0 = Eev - Aev * p1prev;
+    s[2 * rows] = X00 * f0 + X01 * Eod;
+    p1prev = X10 * f0 + X11 * Eod;
+    s[3 * rows] = p1prev;
+    Aev = nAev; Bev = nBev; Dev = nDev; Eev = nEev;
+  };
+  for (int c = 0; c < nch; ++c) {
+    int k0, n;
+    chunk(c, false, k0, n);
+    next_tile(c, false);
+    if (!active) continue;
+    for (int kk = 0; kk < n; ++kk) {  // layer j = k0 + kk, lower edge j + 1
+      const T b_bot = at(c, 3, kk);
+      if (k0 + kk == 0) {
+        ir_layer<T>(at(c, 0, kk), at(c, 1, kk), at(c, 2, kk), b_top, b_bot, tau_min, cur);
+        Bev = cur.e1; Dev = -cur.e2; Eev = -cur.cm0[0];
       } else {
-        Aod = cur.e1 - Rs * cur.e3;
-        Bod = cur.e2 - Rs * cur.e4;
-        Dod = T(0);
-        Eod = Ss - cur.cpb[0] + Rs * cur.cmb[0];
+        ir_layer<T>(at(c, 0, kk), at(c, 1, kk), at(c, 2, kk), b_top, b_bot, tau_min, nxt);
+        eliminate(k0 + kk - 1, false);
+        cur = nxt;
       }
-      // block k: M = [[Bev, Dev], [Aod, Bod]], L01 = Aev, U10 = Dod
-      T M00 = Bev - Aev * q1prev;
-      T inv_det = T(1) / (M00 * Bod - Dev * Aod);
-      T X00 = Bod * inv_det, X01 = -Dev * inv_det;
-      T X10 = -Aod * inv_det, X11 = M00 * inv_det;
-      T* s = sc + k * sk;
-      q1prev = X11 * Dod;
-      s[0] = X01 * Dod;
-      s[rows] = q1prev;
-      T f0 = Eev - Aev * p1prev;
-      s[2 * rows] = X00 * f0 + X01 * Eod;
-      p1prev = X10 * f0 + X11 * Eod;
-      s[3 * rows] = p1prev;
-      cur = nxt;
-      Aev = nAev; Bev = nBev; Dev = nDev; Eev = nEev;
+      b_top = b_bot;
     }
   }
+  if (active) eliminate(nz - 1, true);
 
   // ---- backward: back substitution, edge fluxes and their reduction ----
   const int64_t groups = rows / nG, grp0 = int64_t(blockIdx.x) * (bd / nG);
-  // layer k's scratch and inputs, read one layer ahead
-  T q0a = T(0), q1a = T(0), p0a = T(0), p1a = T(0), ta = T(0), wa = T(0), ga = T(0), ba = T(0);
+  T q0a = T(0), q1a = T(0), p0a = T(0), p1a = T(0);  // layer k's scratch, read one layer ahead
   auto fetch = [&](int k) {
     const T* s = sc + k * sk;
     q0a = s[0]; q1a = s[rows]; p0a = s[2 * rows]; p1a = s[3 * rows];
-    ta = in(tau, k); wa = in(w0, k); ga = in(gt, k); ba = edge(k);
   };
-  T b_bot = T(0);  // the lower edge of layer k
+  T unext = T(0), b_bot = T(0);  // b_bot: the lower Planck edge of layer k
   if (active) {
-    b_bot = edge(nz);
+    b_bot = bpl[row * (nz + 1) + nz];
     fetch(nz - 1);
   }
-  T unext = T(0);
-  int slot = 0, j0 = nz;
-  for (int k = nz - 1; k >= 0; --k) {
-    T top[NOUT], bot[NOUT];
+  __syncwarp(wmask);  // every lane is done with the forward's tiles
+  fetch_tile(0, true);
+  int slot = 0, j0 = nz;  // staged edges j0, j0 - 1, ... in vals
+  for (int c = 0; c < nch; ++c) {
+    int k0, n;
+    chunk(c, true, k0, n);
+    next_tile(c, true);
+    for (int kk = n - 1; kk >= 0; --kk) {  // layer k = k0 + kk, upper edge k
+      const int k = k0 + kk;
+      T top[NOUT], bot[NOUT];
 #pragma unroll
-    for (int o = 0; o < NOUT; ++o) { top[o] = T(0); bot[o] = T(0); }
-    if (active) {
-      const T q0 = q0a, q1 = q1a, p0 = p0a, p1 = p1a, tk = ta, wk = wa, gk = ga, bk = ba;
-      if (k > 0) fetch(k - 1);
-      T y1 = p0 - q0 * unext;
-      T y2 = p1 - q1 * unext;
-      unext = y1;
-      Layer<T, 1> c;
-      ir_layer<T>(tk, wk, gk, bk, b_bot, tau_min, c);
-      b_bot = bk;
-      top[0] = y1 * c.e3 - y2 * c.e4 + c.cp0[0];  // fup at the top edge; fdn there is 0
-      bot[0] = y1 * c.e1 + y2 * c.e2 + c.cpb[0];
-      bot[1] = y1 * c.e3 + y2 * c.e4 + c.cmb[0];
-    }
+      for (int o = 0; o < NOUT; ++o) { top[o] = T(0); bot[o] = T(0); }
+      if (active) {
+        const T q0 = q0a, q1 = q1a, p0 = p0a, p1 = p1a;
+        if (k > 0) fetch(k - 1);
+        T y1 = p0 - q0 * unext;
+        T y2 = p1 - q1 * unext;
+        unext = y1;
+        const T b_top = at(c, 3, kk);
+        Layer<T, 1> lay;
+        ir_layer<T>(at(c, 0, kk), at(c, 1, kk), at(c, 2, kk), b_top, b_bot, tau_min, lay);
+        b_bot = b_top;
+        top[0] = y1 * lay.e3 - y2 * lay.e4 + lay.cp0[0];  // fup at the top edge; fdn there is 0
+        bot[0] = y1 * lay.e1 + y2 * lay.e2 + lay.cpb[0];
+        bot[1] = y1 * lay.e3 + y2 * lay.e4 + lay.cmb[0];
+      }
 #pragma unroll
-    for (int o = 0; o < NOUT; ++o) vals[(o * slots + slot) * bd + tid] = bot[o];
-    ++slot;
-    if (k == 0) {
-#pragma unroll
-      for (int o = 0; o < NOUT; ++o) vals[(o * slots + slot) * bd + tid] = top[o];
+      for (int o = 0; o < NOUT; ++o) vals[(o * slots + slot) * bd + tid] = bot[o];
       ++slot;
-    }
-    if (slot >= E || k == 0) {  // the same at every thread
-      __syncthreads();
-      reduce_edges<T, NOUT, false>(vals, slots, slot, j0, nullptr, wbin, 1, nG, grp0, groups,
-                                   nz, out_fup, out_fdn, nullptr);
-      __syncthreads();
-      j0 -= slot;
-      slot = 0;
+      if (k == 0) {
+#pragma unroll
+        for (int o = 0; o < NOUT; ++o) vals[(o * slots + slot) * bd + tid] = top[o];
+        ++slot;
+      }
+      if (slot >= kIrEdges || k == 0) {  // the same at every thread
+        __syncthreads();
+        reduce_edges<T, NOUT, false>(vals, slots, slot, j0, nullptr, wbin, 1, nG, grp0, groups,
+                                     nz, out_fup, out_fdn, nullptr);
+        __syncthreads();
+        j0 -= slot;
+        slot = 0;
+      }
     }
   }
 }
 
-constexpr int kIrThreads = 128;  // threads a block aims at (whole gauss groups)
-constexpr int kIrEdges = 16;     // edges reduced per pair of block barriers, at most
+// dynamic shared memory of a block of `threads` with tiles of TK layers
+template <typename T>
+size_t ir_smem(int nG, int threads, int TK) {
+  constexpr int LDW = 32 + int(16 / sizeof(T));
+  return (size_t(nG) + size_t((threads + 31) / 32) * 2 * 4 * TK * LDW
+          + size_t(2) * (kIrEdges + 1) * threads) * sizeof(T);
+}
+
+template <typename T, int TK>
+int launch_ir_tiles(const void* tau, const void* w0, const void* gt, const void* emis,
+                    const void* bpl, const void* wbin, int nG, long long rows, int nz, int hard,
+                    double tau_min, void* scratch, void* out_fup, void* out_fdn, int threads,
+                    size_t smem, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ir_weighted_kernel<T, TK>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err != cudaSuccess) return int(err);
+  }
+  const long long blocks = (rows / nG) / (threads / nG) + ((rows / nG) % (threads / nG) != 0);
+  ir_weighted_kernel<T, TK><<<dim3(unsigned(blocks)), threads, smem, stream>>>(
+      (const T*)tau, (const T*)w0, (const T*)gt, (const T*)emis, (const T*)bpl, (const T*)wbin,
+      nG, rows, nz, hard, T(tau_min), (T*)scratch, (T*)out_fup, (T*)out_fdn);
+  return int(cudaGetLastError());
+}
 
 // scratch (nz, 4, rows); a gauss group must fit one block
 template <typename T>
@@ -814,25 +940,23 @@ int launch_ir_weighted(const void* tau, const void* w0, const void* gt, const vo
                        const void* bpl, const void* wbin, int nG, long long rows, int nz,
                        int hard, double tau_min, void* scratch, void* out_fup, void* out_fdn,
                        cudaStream_t stream) {
-  constexpr int NOUT = 2;
-  cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, ir_weighted_kernel<T>);
-  if (err != cudaSuccess) return int(err);
-  if (nG < 1 || nG > attr.maxThreadsPerBlock) return int(cudaErrorInvalidConfiguration);
   int per = kIrThreads / nG;
   if (per < 1) per = 1;
   const int threads = per * nG;
-  const long long blocks = (rows / nG + per - 1) / per;
-  // edges per reduction: as many as fit beside wbin in the 48 KB of dynamic
-  // shared memory a launch gets by default, 1 to kIrEdges
-  const size_t per_slot = size_t(NOUT) * threads * sizeof(T);
-  int E = int((48 * 1024 - size_t(nG) * sizeof(T)) / per_slot) - 1;
-  E = E < 1 ? 1 : (E > kIrEdges ? kIrEdges : E);
-  const size_t smem = size_t(nG) * sizeof(T) + (E + 1) * per_slot;
-  ir_weighted_kernel<T><<<dim3(unsigned(blocks)), threads, smem, stream>>>(
-      (const T*)tau, (const T*)w0, (const T*)gt, (const T*)emis, (const T*)bpl, (const T*)wbin,
-      nG, rows, nz, hard, T(tau_min), E, (T*)scratch, (T*)out_fup, (T*)out_fdn);
-  return int(cudaGetLastError());
+  size_t smem = ir_smem<T>(nG, threads, kIrLayers);
+  const bool deep = smem <= 227 * 1024;  // tiles of kIrLayers layers fit
+  if (!deep) smem = ir_smem<T>(nG, threads, 1);
+  cudaFuncAttributes attr;
+  const cudaError_t err = deep ? cudaFuncGetAttributes(&attr, ir_weighted_kernel<T, kIrLayers>)
+                               : cudaFuncGetAttributes(&attr, ir_weighted_kernel<T, 1>);
+  if (err != cudaSuccess) return int(err);
+  if (nG < 1 || nG > attr.maxThreadsPerBlock || smem > 227 * 1024)
+    return int(cudaErrorInvalidConfiguration);
+  return deep ? launch_ir_tiles<T, kIrLayers>(tau, w0, gt, emis, bpl, wbin, nG, rows, nz, hard,
+                                              tau_min, scratch, out_fup, out_fdn, threads, smem,
+                                              stream)
+              : launch_ir_tiles<T, 1>(tau, w0, gt, emis, bpl, wbin, nG, rows, nz, hard, tau_min,
+                                      scratch, out_fup, out_fdn, threads, smem, stream);
 }
 
 template <typename T>

@@ -419,19 +419,18 @@ def _ir_layer_ref(tau, w0, gt, b_top, b_bot, tau_min):
 
 
 def ir_weighted_schedule_ref(tau, w0, gt, emissivity, has_hard_surface, tau_min, bplanck,
-                             wbin, edges=16):
+                             wbin):
     """Plain PyTorch model of the weighted IR kernel's schedule, for the
     tests; no path calls it. Same arguments and outputs as
-    :func:`two_stream_ir_weighted_cuda`; ``edges``: edges staged per
-    reduction (the kernel's kIrEdges).
+    :func:`two_stream_ir_weighted_cuda`.
 
     Rows are a tensor axis where the kernel has a thread per row. The forward
     pass loops over layers top to bottom: layer coefficients, the 2x2-block
     Thomas elimination, and q and p stored per layer. The backward pass,
     bottom to top, forms u_k = p_k - q_k u_{k+1}[0], recomputes the layer's
-    coefficients and stages its edge fluxes; every ``edges`` edges (and after
-    the top layer) each staged edge is reduced over the gauss rows of each
-    group in order with wbin, the kernel's order.
+    coefficients and stages its edge fluxes; every 8 edges (the kernel's
+    kIrEdges) and after the top layer each staged edge is reduced over the
+    gauss rows of each group in order with wbin, the kernel's order.
     """
     rows, nz = tau.shape
     nG = wbin.shape[0]
@@ -497,7 +496,7 @@ def ir_weighted_schedule_ref(tau, w0, gt, emissivity, has_hard_surface, tau_min,
                        y1 * c["e3"] + y2 * c["e4"] + c["cmb"]))
         if k == 0:
             staged.append((0, y1 * c["e3"] - y2 * c["e4"] + c["cp0"], zero))
-        if len(staged) >= edges or k == 0:
+        if len(staged) >= 8 or k == 0:
             for j, up, dn in staged:
                 fup[j], fdn[j] = reduce(up), reduce(dn)
             staged = []

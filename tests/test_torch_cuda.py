@@ -83,6 +83,28 @@ def test_ir_weighted_kernel_matches_twin(dev, hard, nG, nz, dtype):
     (_close if dtype == torch.float64 else _close_f32)(got, want)
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_ir_weighted_kernel_large_gauss_group(dev, dtype):
+    """Gauss groups of 384 rows, a block each: in float64 the kernel's tiles
+    of 8 layers do not fit in shared memory there, so it takes tiles of one
+    layer. Tolerances as in test_ir_weighted_kernel_matches_twin."""
+    nw, nG, nz = 3, 384, 37
+    tau, w0, gt = _atm(nw * nG, nz, dev, 19)
+    rng = np.random.default_rng(20)
+    t = lambda x: torch.tensor(x, dtype=dtype, device=dev)
+    emis = rng.uniform(0.8, 1.0, nw * nG)
+    bpl = rng.uniform(1e-2, 1.0, (nw * nG, nz + 1)) if dtype == torch.float64 else \
+        _planck_rows(nw, nG, nz, rng)
+    for hard in (True, False):
+        args = (tau.to(dtype), w0.to(dtype), gt.to(dtype), t(emis), hard, 1e-6, t(bpl),
+                t(np.polynomial.legendre.leggauss(nG)[1] / 2.0))
+        n = twostream_cuda.two_stream_ir_weighted_cuda.launches
+        got = twostream_cuda.two_stream_ir_weighted_cuda(*args)
+        assert twostream_cuda.two_stream_ir_weighted_cuda.launches == n + 1
+        (_close if dtype == torch.float64 else _close_f32)(
+            got, twostream.two_stream_ir_weighted(*args))
+
+
 def _close_f32(got, want):
     """float32: the largest error under 1e-4 of the largest value."""
     for g, w in zip(got, want):

@@ -35,6 +35,7 @@ MODULES = [
     "clima_tpu_torch.adiabat.adiabat",
     "clima_tpu_torch.parallel",
     "clima_tpu_torch.parallel.pipeline",
+    "clima_tpu_torch.tools.compare_twostream_builds",
     "chip_smoke",
 ]
 

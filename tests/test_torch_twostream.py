@@ -113,7 +113,7 @@ _ir_weighted_xla = jax.jit(ref_ts.two_stream_ir_weighted, static_argnums=(4, 5))
                                            (16, 21, False), (16, 37, True)])
 def test_ir_weighted_schedule_ref_matches_reference(interpret, nG, nz, hard):
     """The plain model of the weighted IR kernel's schedule (a thread per row,
-    back substitution fused with the edge fluxes, 16 edges staged per
+    back substitution fused with the edge fluxes, 8 edges staged per
     reduction, the gauss rows summed in order) against the JAX package's
     Pallas kernel in interpret mode and its XLA path, with a thin layer, at
     layer counts that are no multiple of 16: every gauss group size with a
