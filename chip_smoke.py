@@ -16,7 +16,10 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
       timed in float32 too, where its output must be finite and its
       deviation from the float64 twin is printed beside the float32 twin's
       own, then held to the float32 twin on the Planck function of a
-      temperature column; the weighted solar kernel with 4 zenith angles, with and without amean,
+      temperature column, and to the float64 twin on such inputs without
+      layers where float32 cancels, at a limit that a known-wrong float32
+      result (the twin without its thin-layer branch) must exceed; the
+      weighted solar kernel with 4 zenith angles, with and without amean,
       both timed, and timed in float32 too, where its output must be
       finite and its deviation from the float64 twin is printed beside the
       float32 twin's own; RORR with 3 species at nbin 8 and 16, both timed
@@ -326,17 +329,47 @@ def phase_kernels(device, B=B_COLS, nz=NZ_R, nw_ir=28, nw_sol=32, nw=51, nG=8,
     T_col = torch.linspace(290.0, 180.0, nz + 1, dtype=torch.float64, device=device)
     freq = 10.0 ** (12.5 + 1.5 * rand_t(rows // nG, 1))
     bpl_t = eqns.planck_fcn(freq, T_col[None, :] + 10.0 * (rand_t(rows // nG, 1) - 0.5))
-    args32 = [a.float() if torch.is_tensor(a) else a for a in ir_args(True)]
-    args32[6] = bpl_t.repeat_interleave(nG, dim=0).float()
+    args64 = list(ir_args(True))
+    args64[6] = bpl_t.repeat_interleave(nG, dim=0)
+    maxrel = lambda xs, ws: max(float((x.double() - w.double()).abs().max()
+                                      / w.double().abs().max()) for x, w in zip(xs, ws))
+    # a known-wrong float32 result: the twin without its thin-layer branch
+    # (tau_min 0), which in float64 moves the outputs by rounding only
+    wrong = lambda a: twostream.two_stream_ir_weighted(*a[:5], 0.0, *a[6:])
+    args32 = [a.float() if torch.is_tensor(a) else a for a in args64]
     got32 = twostream_cuda.two_stream_ir_weighted_cuda(*args32)
     twin32 = twostream.two_stream_ir_weighted(*args32)
-    maxrel = max(float((g.double() - w.double()).abs().max() / w.double().abs().max())
-                 for g, w in zip(got32, twin32))
-    print(f"  IR float32 on Planck values of a temperature column: maxrel {maxrel:.3e} "
-          f"against the float32 twin")
-    if not (all(bool(torch.isfinite(x).all()) for x in got32) and maxrel < 1e-4):
-        raise AssertionError(f"float32 IR kernel deviates from its twin: {maxrel:.3e}")
-    del tau, w0, gt, emis, bpl, args32, got32, twin32, bpl_t
+    want64 = twostream.two_stream_ir_weighted(*args64)
+    maxrel_twin = maxrel(got32, twin32)
+    print(f"  IR float32 on Planck values of a temperature column, largest deviation over the "
+          f"largest value: kernel from the float32 twin {maxrel_twin:.3e} (limit 1e-4), from "
+          f"the float64 twin {maxrel(got32, want64):.3e}; float32 twin from the float64 twin "
+          f"{maxrel(twin32, want64):.3e}; known-wrong control from the float64 twin "
+          f"{maxrel(wrong(args32), want64):.3e}, from the float32 twin "
+          f"{maxrel(wrong(args32), twin32):.3e}")
+    if not (all(bool(torch.isfinite(x).all()) for x in got32) and maxrel_twin < 1e-4):
+        raise AssertionError(f"float32 IR kernel deviates from its twin: {maxrel_twin:.3e}")
+    # where float32 is well conditioned: no layer between tau_min and 1e-2
+    # (the source of such layers cancels), the top layer of every row thin
+    # (1e-7, as at the top of a column), so every row takes the thin-layer
+    # branch; held to the float64 twin at 1e-5 of the largest value, a limit
+    # the known-wrong control must exceed
+    args64[0] = 1e-2 + (2.0 - 1e-2) * rand_t(rows, nz)
+    args64[0][:, 0] = 1e-7
+    args32 = [a.float() if torch.is_tensor(a) else a for a in args64]
+    got32 = twostream_cuda.two_stream_ir_weighted_cuda(*args32)
+    want64 = twostream.two_stream_ir_weighted(*args64)
+    r_kernel, r_wrong = maxrel(got32, want64), maxrel(wrong(args32), want64)
+    print(f"  IR float32, no layer with tau in (1e-6, 1e-2), thin top layers: largest deviation "
+          f"from the float64 twin over its largest value: kernel {r_kernel:.3e}, float32 twin "
+          f"{maxrel(twostream.two_stream_ir_weighted(*args32), want64):.3e}, known-wrong "
+          f"control {r_wrong:.3e} (limit 1e-5)")
+    if not (all(bool(torch.isfinite(x).all()) for x in got32) and r_kernel < 1e-5):
+        raise AssertionError(f"float32 IR kernel deviates from the float64 twin: {r_kernel:.3e}")
+    if not r_wrong > 1e-5:
+        raise AssertionError(f"the float32 limit does not tell the known-wrong control: "
+                             f"{r_wrong:.3e}")
+    del tau, w0, gt, emis, bpl, args64, args32, got32, twin32, want64, bpl_t
 
     # solar: rows = B*32*8, 4 zenith angles, with and without amean
     rows = B * nw_sol * nG

@@ -426,10 +426,11 @@ __device__ __forceinline__ void solar_layer_1(T tau_in, T w0_in, T gt_in, T tauc
 
 // The weighted sums of a chunk of ne edges (descending from edge j0): one
 // (gauss group, edge, output) item per thread, each summing its group's
-// zeniths in order with zw for every gauss row (ZEN; without it a gauss row
-// is one thread, nzen = 1), then the gauss rows in order with wbin. vals
-// holds (NOUT, slots, blockDim) per-thread values.
-template <typename T, int NOUT, bool ZEN>
+// zeniths in order with zw for every gauss row, then the gauss rows in order
+// with wbin. vals holds (NOUT, slots, blockDim) per-thread values. With one
+// zenith of weight 1 (the IR kernel) a gauss row's sum is its value, bit for
+// bit.
+template <typename T, int NOUT>
 __device__ __forceinline__ void reduce_edges(const T* vals, int slots, int ne, int j0,
                                              const T* zw, const T* wbin, int nzen, int nG,
                                              int64_t grp0, int64_t groups, int nz, T* out_fup,
@@ -441,13 +442,8 @@ __device__ __forceinline__ void reduce_edges(const T* vals, int slots, int ne, i
     const T* v = vals + (o * slots + e) * bd + gl * nG * nzen;
     T s = T(0);
     for (int g = 0; g < nG; ++g) {
-      T acc;
-      if constexpr (ZEN) {
-        acc = T(0);
-        for (int r = 0; r < nzen; ++r) acc += zw[r] * v[g * nzen + r];
-      } else {
-        acc = v[g];
-      }
+      T acc = T(0);
+      for (int r = 0; r < nzen; ++r) acc += zw[r] * v[g * nzen + r];
       s += wbin[g] * acc;
     }
     T* out = o == 0 ? out_fup : (o == 1 ? out_fdn : out_am);
@@ -590,8 +586,8 @@ __global__ void solar_weighted_kernel(
     }
     if (slot >= E || k == 0) {  // the same at every thread
       __syncthreads();
-      reduce_edges<T, NOUT, true>(vals, slots, slot, j0, zw, wbin, nzen, nG, grp0, groups, nz,
-                                  out_fup, out_fdn, out_am);
+      reduce_edges<T, NOUT>(vals, slots, slot, j0, zw, wbin, nzen, nG, grp0, groups, nz, out_fup,
+                            out_fdn, out_am);
       __syncthreads();
       j0 -= slot;
       slot = 0;
@@ -652,15 +648,14 @@ int launch_solar_weighted(const void* tau, const void* w0, const void* gt, const
 // in series between them; three passes over a (nz, 4, rows) scratch (p and q
 // written, p rewritten as u, u read again); and the (rows, nz) inputs read
 // twice by a thread per row, each warp load touching 32 sectors nz values
-// apart. On an H100 a two-pass kernel reading its inputs that way took
-// nearly twice as long as the same kernel reading them transposed,
-// (nz, rows): the L1 does not hide the stride.
+// apart. The L1 does not hide that stride: the same two-pass kernel reading
+// its inputs through the tiles below is faster (PERF.md).
 //
 // Design. One thread owns one (column, bin, gauss point) row; a block holds
 // whole gauss groups (about kIrThreads threads). It runs the template's
 // 2x2-block Thomas elimination, its operations unchanged, in two passes.
-// Each warp reads the inputs of its 32 rows in chunks of kIrLayers layers
-// through two tiles of its own in shared memory: while it works on one
+// Each warp reads the inputs of its 32 rows in chunks of 8 layers (fewer
+// where a large gauss group leaves no room for 8 in shared memory) through two tiles of its own in shared memory: while it works on one
 // chunk, cp.async copies the next into the other tile, coalesced
 // (neighbouring lanes copy neighbouring layers of one row) and without
 // holding registers; a lane then reads its row's column of the tile. Warps
@@ -677,59 +672,50 @@ int launch_solar_weighted(const void* tau, const void* w0, const void* gt, const
 //            template's order, without atomics, so results repeat bit for
 //            bit.
 // Scratch (nz, 4, rows): q0, q1, p0, p1 of each layer, written once and read
-// once, coalesced in the thread order. What bounds it is not apportioned: at
-// the radtran path's shape it takes ~8x its bytes bound, ~1.5x the two-pass
-// kernel on transposed inputs; in float64 a block's 88 KB of shared memory
-// leave room for 2 blocks (8 warps) an SM, each thread a dependent chain of
-// divides, sqrt and exp per layer.
+// once, coalesced in the thread order. What bounds it is not apportioned
+// (PERF.md): in float64 a block's 88 KB of shared memory leave room for 2
+// blocks (8 warps) an SM, each thread a dependent chain of divides, sqrt and
+// exp per layer.
 
 // An asynchronous copy of one value from device to shared memory (cp.async:
 // no register holds it while it is in flight); copy_commit closes this
 // thread's group of copies, copy_wait waits for all its groups.
 template <typename T>
 __device__ __forceinline__ void copy_async(T* dst, const T* src) {
-#if defined(__CUDA_ARCH__)
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src),
                "n"(int(sizeof(T))));
-#else
-  *dst = *src;
-#endif
 }
 
-__device__ __forceinline__ void copy_commit() {
-#if defined(__CUDA_ARCH__)
-  asm volatile("cp.async.commit_group;\n" ::);
-#endif
-}
+__device__ __forceinline__ void copy_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
-__device__ __forceinline__ void copy_wait() {
-#if defined(__CUDA_ARCH__)
-  asm volatile("cp.async.wait_group 0;\n" ::);
-#endif
-}
+__device__ __forceinline__ void copy_wait() { asm volatile("cp.async.wait_group 0;\n" ::); }
 
 constexpr int kIrThreads = 128;  // threads a block aims at (whole gauss groups)
-constexpr int kIrLayers = 8;     // layers per tile (1 where 8 do not fit: large gauss groups)
-constexpr int kIrEdges = 8;      // edges per reduction
+constexpr int kIrLayersLog2 = 3;  // 8 layers per tile (fewer where 8 do not fit: large groups)
+constexpr int kIrEdges = 8;       // edges per reduction
 
-// Outputs (rows/nG, nz+1) each: fup and fdn, weighted. Dynamic shared memory:
-// wbin (nG), two tiles (4, TK, 32 + 16 bytes' worth) per warp (the pad keeps
-// the copies into a tile apart in the banks), the staged fluxes
-// (2, kIrEdges + 1, blockDim).
-template <typename T, int TK>
+// Outputs (rows/nG, nz+1) each: fup and fdn, weighted. Tiles hold TK =
+// 1 << tk_log2 layers. Dynamic shared memory: the zenith weight 1 and wbin
+// (nG) for reduce_edges, two tiles (4, TK, 32 + 16 bytes' worth) per warp
+// (the pad keeps the copies into a tile apart in the banks), the staged
+// fluxes (2, kIrEdges + 1, blockDim).
+template <typename T>
 __global__ void ir_weighted_kernel(
     const T* __restrict__ tau, const T* __restrict__ w0, const T* __restrict__ gt,
     const T* __restrict__ emis, const T* __restrict__ bpl, const T* __restrict__ wbin_g,
-    int nG, int64_t rows, int nz, int hard, T tau_min, T* __restrict__ scratch,
+    int nG, int64_t rows, int nz, int hard, T tau_min, int tk_log2, T* __restrict__ scratch,
     T* __restrict__ out_fup, T* __restrict__ out_fdn) {
   constexpr int NOUT = 2, slots = kIrEdges + 1;
-  constexpr int LDW = 32 + int(16 / sizeof(T)), WTILE = 4 * TK * LDW;
+  constexpr int LDW = 32 + int(16 / sizeof(T));
+  const int TK = 1 << tk_log2, WTILE = 4 * TK * LDW;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int bd = blockDim.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  T* wbin = reinterpret_cast<T*>(smem_raw);
+  T* one = reinterpret_cast<T*>(smem_raw);
+  T* wbin = one + 1;
   T* tiles = wbin + nG + warp * 2 * WTILE;  // this warp's two
   T* vals = wbin + nG + ((bd + 31) / 32) * 2 * WTILE;
+  if (tid == 0) one[0] = T(1);
   for (int i = tid; i < nG; i += bd) wbin[i] = wbin_g[i];
 
   const int64_t row0 = int64_t(blockIdx.x) * bd, row = row0 + tid;
@@ -755,7 +741,7 @@ __global__ void ir_weighted_kernel(
     const int eoff = up ? 0 : 1;
     T* t = tiles + (c & 1) * WTILE;
     for (int i = lane; i < wrows * TK; i += wlanes) {
-      const int r = i / TK, kk = i % TK;
+      const int r = i >> tk_log2, kk = i & (TK - 1);
       if (kk < n) {
         const int64_t g = (wrow0 + r) * nz + k0 + kk;
         copy_async(t + kk * LDW + r, tau + g);
@@ -899,8 +885,8 @@ __global__ void ir_weighted_kernel(
       }
       if (slot >= kIrEdges || k == 0) {  // the same at every thread
         __syncthreads();
-        reduce_edges<T, NOUT, false>(vals, slots, slot, j0, nullptr, wbin, 1, nG, grp0, groups,
-                                     nz, out_fup, out_fdn, nullptr);
+        reduce_edges<T, NOUT>(vals, slots, slot, j0, one, wbin, 1, nG, grp0, groups, nz, out_fup,
+                              out_fdn, nullptr);
         __syncthreads();
         j0 -= slot;
         slot = 0;
@@ -909,32 +895,16 @@ __global__ void ir_weighted_kernel(
   }
 }
 
-// dynamic shared memory of a block of `threads` with tiles of TK layers
+// dynamic shared memory of a block of `threads` with tiles of 1 << tk_log2 layers
 template <typename T>
-size_t ir_smem(int nG, int threads, int TK) {
+size_t ir_smem(int nG, int threads, int tk_log2) {
   constexpr int LDW = 32 + int(16 / sizeof(T));
-  return (size_t(nG) + size_t((threads + 31) / 32) * 2 * 4 * TK * LDW
+  return (size_t(1 + nG) + size_t((threads + 31) / 32) * 2 * 4 * (size_t(1) << tk_log2) * LDW
           + size_t(2) * (kIrEdges + 1) * threads) * sizeof(T);
 }
 
-template <typename T, int TK>
-int launch_ir_tiles(const void* tau, const void* w0, const void* gt, const void* emis,
-                    const void* bpl, const void* wbin, int nG, long long rows, int nz, int hard,
-                    double tau_min, void* scratch, void* out_fup, void* out_fdn, int threads,
-                    size_t smem, cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ir_weighted_kernel<T, TK>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (err != cudaSuccess) return int(err);
-  }
-  const long long blocks = (rows / nG) / (threads / nG) + ((rows / nG) % (threads / nG) != 0);
-  ir_weighted_kernel<T, TK><<<dim3(unsigned(blocks)), threads, smem, stream>>>(
-      (const T*)tau, (const T*)w0, (const T*)gt, (const T*)emis, (const T*)bpl, (const T*)wbin,
-      nG, rows, nz, hard, T(tau_min), (T*)scratch, (T*)out_fup, (T*)out_fdn);
-  return int(cudaGetLastError());
-}
-
-// scratch (nz, 4, rows); a gauss group must fit one block
+// scratch (nz, 4, rows); a gauss group must fit one block, with tiles of at
+// least one layer in its shared memory
 template <typename T>
 int launch_ir_weighted(const void* tau, const void* w0, const void* gt, const void* emis,
                        const void* bpl, const void* wbin, int nG, long long rows, int nz,
@@ -943,20 +913,25 @@ int launch_ir_weighted(const void* tau, const void* w0, const void* gt, const vo
   int per = kIrThreads / nG;
   if (per < 1) per = 1;
   const int threads = per * nG;
-  size_t smem = ir_smem<T>(nG, threads, kIrLayers);
-  const bool deep = smem <= 227 * 1024;  // tiles of kIrLayers layers fit
-  if (!deep) smem = ir_smem<T>(nG, threads, 1);
+  // the deepest tiles that fit: 8 layers but for large gauss groups
+  int tk_log2 = kIrLayersLog2;
+  while (tk_log2 > 0 && ir_smem<T>(nG, threads, tk_log2) > 227 * 1024) --tk_log2;
+  const size_t smem = ir_smem<T>(nG, threads, tk_log2);
   cudaFuncAttributes attr;
-  const cudaError_t err = deep ? cudaFuncGetAttributes(&attr, ir_weighted_kernel<T, kIrLayers>)
-                               : cudaFuncGetAttributes(&attr, ir_weighted_kernel<T, 1>);
+  cudaError_t err = cudaFuncGetAttributes(&attr, ir_weighted_kernel<T>);
   if (err != cudaSuccess) return int(err);
   if (nG < 1 || nG > attr.maxThreadsPerBlock || smem > 227 * 1024)
     return int(cudaErrorInvalidConfiguration);
-  return deep ? launch_ir_tiles<T, kIrLayers>(tau, w0, gt, emis, bpl, wbin, nG, rows, nz, hard,
-                                              tau_min, scratch, out_fup, out_fdn, threads, smem,
-                                              stream)
-              : launch_ir_tiles<T, 1>(tau, w0, gt, emis, bpl, wbin, nG, rows, nz, hard, tau_min,
-                                      scratch, out_fup, out_fdn, threads, smem, stream);
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(ir_weighted_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               int(smem));
+    if (err != cudaSuccess) return int(err);
+  }
+  const long long blocks = (rows / nG) / per + ((rows / nG) % per != 0);
+  ir_weighted_kernel<T><<<dim3(unsigned(blocks)), threads, smem, stream>>>(
+      (const T*)tau, (const T*)w0, (const T*)gt, (const T*)emis, (const T*)bpl, (const T*)wbin,
+      nG, rows, nz, hard, T(tau_min), tk_log2, (T*)scratch, (T*)out_fup, (T*)out_fdn);
+  return int(cudaGetLastError());
 }
 
 template <typename T>

@@ -5,29 +5,27 @@
 
 Each ``name=path`` source is built with the flags of ``ops/cuda_build.py``
 into ``clima_tpu_torch/_build/compare/`` (all builds started together) and
-loaded with ctypes; ptxas's registers and spills are printed for every
-``ir_weighted_kernel`` instance. A source given as ``name=path:transposed`` is
-a variant of the weighted IR kernel that reads tau/w0/g as (nz, rows) and
-bplanck as (nz+1, rows), and gets its inputs so laid out.
-
-On the card, every build runs
+ptxas's registers and spills are printed for every kernel instance. Every
+build then runs, through the port's wrappers,
 - the weighted IR kernel (#1) at the radtran path's shape (57344 rows x 202
   layers, nG 8) and the adiabat path's (1792 rows x 102 layers), in float64
   and float32, hard surface, random inputs in chip_smoke.py's ranges with a
   thin layer;
 - the unreduced kernels (#4-#6) at the roofline shapes (122880 rows x 202
   layers, the inputs of chip_smoke.py's phase 3b).
-Every output is compared bitwise with the first build's; #1's float64 outputs
-are also held to the plain twin (rtol 1e-9, atol 1e-12). The builds are
-timed in turns with CUDA events (the first build, the others, the others
-again in reverse order, the first again; each time the mean of ``--reps``
-launches after a warm-up), and each build's two times are printed.
+Every build's outputs are compared bitwise with every other build's; #1's
+float64 outputs are also held to the plain twin (rtol 1e-9, atol 1e-12).
+The builds are timed in turns with CUDA events (the first build, the others,
+the others again in reverse order, the first again; each time the mean of
+``--reps`` launches after a warm-up), and each build's two times are
+printed.
 """
 
 from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import ctypes
 import os
 import subprocess
@@ -42,8 +40,8 @@ _OUT = os.path.join(cuda_build._PKG, "_build", "compare")
 
 
 def build(name, path):
-    """Build ``path`` as library ``name``; returns (entry points, ptxas lines of
-    the weighted IR kernel)."""
+    """Build ``path`` as library ``name``; returns (its entry points as
+    ``cuda_build.load_library`` gives them, ptxas's lines)."""
     os.makedirs(_OUT, exist_ok=True)
     out = os.path.join(_OUT, f"lib{name}.so")
     res = subprocess.run([cuda_build._nvcc(), *cuda_build._FLAGS, "-o", out, path],
@@ -61,26 +59,20 @@ def build(name, path):
     for line in log.splitlines():
         if "Function properties for" in line:
             fn = line.split("Function properties for", 1)[1].strip()
-        elif fn and "ir_weighted_kernel" in fn and ("registers" in line or "spill" in line):
+        elif fn and ("registers" in line or "spill" in line):
             lines.append(f"{fn}: {line.strip()}")
     return fns, lines
 
 
-def ir_weighted(fns, rows, nz, tau, w0, gt, emis, hard, bpl, wbin):
-    """One launch of a build's weighted IR kernel on inputs in its layout;
-    returns (fup_w, fdn_w)."""
-    nG = wbin.shape[0]
-    kw = dict(dtype=tau.dtype, device=tau.device)
-    scratch = torch.empty((nz, 8, rows), **kw)  # the largest any build has used
-    fup, fdn = (torch.empty((rows // nG, nz + 1), **kw) for _ in range(2))
-    status = fns["clima_twostream_weighted"](
-        int(tau.dtype == torch.float64), 0, 0, tau.data_ptr(), w0.data_ptr(), gt.data_ptr(),
-        emis.data_ptr(), bpl.data_ptr(), None, None, 1, wbin.data_ptr(), nG, rows, nz,
-        int(hard), 1e-6, scratch.data_ptr(), None, fup.data_ptr(), fdn.data_ptr(),
-        torch.cuda.current_stream(tau.device).cuda_stream)
-    if status != 0:
-        raise RuntimeError(f"launch failed: CUDA error {status}")
-    return fup, fdn
+@contextlib.contextmanager
+def using(fns):
+    """The wrappers of ``ops/twostream_cuda.py`` launch the kernels of ``fns``."""
+    load = twostream_cuda.load_library
+    twostream_cuda.load_library = lambda _name: fns
+    try:
+        yield
+    finally:
+        twostream_cuda.load_library = load
 
 
 def event_ms(fn, reps):
@@ -95,27 +87,25 @@ def event_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def in_turns(calls, reps):
-    """{build: fn} -> {build: [ms, ms]}: first, others, others reversed, first."""
-    names = list(calls)
+def compare(label, built, fn, reps, want=None):
+    """Run ``fn`` on each build, compare its outputs bitwise with the other
+    builds' (and with ``want`` at rtol 1e-9 / atol 1e-12), time the builds in
+    turns and print a line per build."""
+    names = list(built)
+    outs = {}
+    for n in names:
+        with using(built[n][0]):
+            outs[n] = [x for x in fn() if x is not None]
+    torch.cuda.synchronize()
     times = {n: [] for n in names}
     for n in [names[0], *names[1:], *names[1:][::-1], names[0]]:
-        times[n].append(event_ms(calls[n], reps))
-    return times
-
-
-def compare(label, builds, calls, reps, want=None):
-    """Run each build's call, compare bitwise with the first build's (and with
-    ``want`` at rtol 1e-9 / atol 1e-12), time them in turns and print a line
-    per build."""
-    outs = {n: calls[n]() for n in builds}
-    torch.cuda.synchronize()
-    first = next(iter(outs.values()))
-    times = in_turns(calls, reps)
+        with using(built[n][0]):
+            times[n].append(event_ms(fn, reps))
     for n, out in outs.items():
-        same = all(torch.equal(a, b) for a, b in zip(out, first))
+        same = [m for m in names if m != n
+                and all(torch.equal(a, b) for a, b in zip(out, outs[m]))]
         line = (f"{label} {n}: {' / '.join(f'{t:.4f}' for t in times[n])} ms; "
-                f"bitwise equal to {builds[0]}: {same}")
+                f"bitwise equal to: {', '.join(same) or 'none'}")
         if want is not None:
             ok = all(torch.allclose(a, b, rtol=1e-9, atol=1e-12) for a, b in zip(out, want))
             err = max(float((a - b).abs().max()) for a, b in zip(out, want))
@@ -125,22 +115,17 @@ def compare(label, builds, calls, reps, want=None):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("sources", nargs="+", help="name=path[:transposed]")
+    ap.add_argument("sources", nargs="+", help="name=path")
     ap.add_argument("--reps", type=int, default=10)
     args = ap.parse_args(argv)
-    specs = {}
-    for s in args.sources:
-        name, path = s.split("=", 1)
-        path, _, flag = path.partition(":")
-        specs[name] = (path, flag == "transposed")
+    specs = dict(s.split("=", 1) for s in args.sources)
     with concurrent.futures.ThreadPoolExecutor(len(specs)) as ex:
-        built = dict(zip(specs, ex.map(lambda n: build(n, specs[n][0]), specs)))
+        built = dict(zip(specs, ex.map(lambda n: build(n, specs[n]), specs)))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
     for name, (_, lines) in built.items():
         for line in lines:
             print(f"ptxas {name}: {line}")
-    names = list(specs)
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     rand = lambda *shape: torch.rand(shape, generator=gen, dtype=torch.float64, device=dev)
@@ -153,19 +138,16 @@ def main(argv=None):
         w0, gt = 0.02 + 0.979 * rand(rows, nz), 0.85 * rand(rows, nz)
         emis, bpl = 0.8 + 0.2 * rand(rows), 1e-2 + rand(rows, nz + 1)
         for dtype in (torch.float64, torch.float32):
-            a = [x.to(dtype) for x in (tau, w0, gt, emis)] + [True, bpl.to(dtype), wbin.to(dtype)]
-            a_t = [x.T.contiguous() if i in (0, 1, 2, 5) else x for i, x in enumerate(a)] \
-                if any(t for _, t in specs.values()) else None
-            want = twostream.two_stream_ir_weighted(*a[:5], 1e-6, *a[5:]) \
-                if dtype == torch.float64 else None
-            calls = {n: (lambda f=built[n][0], x=(a_t if specs[n][1] else a):
-                         ir_weighted(f, rows, nz, *x)) for n in names}
-            compare(f"#1 {label} ({rows} x {nz}) {str(dtype)[6:]}", names, calls, args.reps, want)
-            del a, a_t, want
+            a = [x.to(dtype) for x in (tau, w0, gt, emis)] + [True, 1e-6, bpl.to(dtype),
+                                                               wbin.to(dtype)]
+            want = twostream.two_stream_ir_weighted(*a) if dtype == torch.float64 else None
+            compare(f"#1 {label} ({rows} x {nz}) {str(dtype)[6:]}", built,
+                    lambda a=a: twostream_cuda.two_stream_ir_weighted_cuda(*a), args.reps, want)
+            del a, want
         del tau, w0, gt, emis, bpl
         torch.cuda.empty_cache()
 
-    # the unreduced kernels at the roofline shapes, through their wrappers
+    # the unreduced kernels at the roofline shapes
     rows, nz = 256 * 60 * 8, 202
     tau = 1e-6 + (2.0 - 1e-6) * rand(rows, nz)
     tau[3, 7] = 1e-7
@@ -186,17 +168,9 @@ def main(argv=None):
         "#6 two_stream_solar_auto": lambda: twostream_cuda.two_stream_solar_auto(
             tau, w0, gt, u0, rs),
     }
-    load = twostream_cuda.load_library
-    try:
-        for label, fn in wrappers.items():
-            def with_build(n, fn=fn):
-                twostream_cuda.load_library = lambda _name: built[n][0]
-                return fn()
-            calls = {n: (lambda n=n: with_build(n)) for n in names}
-            compare(f"{label} ({rows} x {nz}) float64", names, calls, max(2, args.reps // 2))
-            torch.cuda.empty_cache()
-    finally:
-        twostream_cuda.load_library = load
+    for label, fn in wrappers.items():
+        compare(f"{label} ({rows} x {nz}) float64", built, fn, max(2, args.reps // 2))
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
