@@ -86,8 +86,8 @@ def test_ir_weighted_kernel_matches_twin(dev, hard, nG, nz, dtype):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_ir_weighted_kernel_large_gauss_group(dev, dtype):
     """Gauss groups of 384 rows, a block each: in float64 the kernel's tiles
-    of 8 layers do not fit in shared memory there, so it takes tiles of one
-    layer. Tolerances as in test_ir_weighted_kernel_matches_twin."""
+    of 8 layers do not fit in shared memory there, so it takes shallower
+    ones (4 layers). Tolerances as in test_ir_weighted_kernel_matches_twin."""
     nw, nG, nz = 3, 384, 37
     tau, w0, gt = _atm(nw * nG, nz, dev, 19)
     rng = np.random.default_rng(20)
