@@ -63,12 +63,30 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    batch time, the three kernels' times at the path's shapes, the march's
    operations per profile and its time with and without the CUDA graph of
    one interval (and the capture seconds), the solve's time and
-   evaluations, and peak memory.
+   evaluations, and peak memory;
+6. the RCE path: the nz=20, 4-zenith template (surface albedo 0.3),
+   ``AdiabatClimate`` on the card at substeps=6, float64, warm-started by
+   ``surface_temperature``, then ``c.RCE(P_i, T_surf, c.T)`` (the RC march
+   replaying its cached interval graph, HYBRJ/PTC on the host, one objective
+   evaluation = RORR + #1 + #2, one FD Jacobian = one batched call of #1 over
+   the perturbed columns). It must converge, capture the RC graph once and
+   launch each of the three kernels. At the final state the objective's
+   per-bin fluxes and net fluxes and the batched IR call are checked against
+   the same calls with the three kernels swapped for their twins (rtol 1e-9,
+   atol 1e-12; ``f_total``, whose top entries cancel to ~xtol_rc of the flux
+   scale, at rtol 1e-9 of that scale), and a CPU process of the port rebuilds
+   the profile and the objective at the card's final state (P, T, z, lapse
+   rates rtol 1e-9, ``f_total`` as above). Reports the mode iterations,
+   evaluations, Jacobians, final mask, T_surf, the time split (march,
+   radiative transfer, the Jacobian's IR batch, the rest on the host), the
+   graph captures, peak memory, the kernels' launches and times at the
+   path's shapes and #1's largest row count.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; the kernels of a path must each have launched. The
-second-to-last line is a JSON object with each kernel's numbers; the last
-line is the device JSON.
+second-to-last line is a JSON object with each kernel's numbers (its
+launches summed over the radtran, adiabat and RCE paths); the last line is
+the device JSON.
 """
 
 import collections
@@ -90,12 +108,12 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from clima_tpu_torch.adiabat import AdiabatClimate  # noqa: E402
+from clima_tpu_torch.adiabat import AdiabatClimate, rce  # noqa: E402
 from clima_tpu_torch.adiabat import profile as adiabat_profile  # noqa: E402
 from clima_tpu_torch.config import species_from_dict  # noqa: E402
 from clima_tpu_torch.data import make_template  # noqa: E402
 from clima_tpu_torch.ops import cuda_build, rorr_cuda, twostream, twostream_cuda  # noqa: E402
-from clima_tpu_torch.ops.cuda_graph import CAPTURE_SECONDS  # noqa: E402
+from clima_tpu_torch.ops.cuda_graph import CAPTURE_SECONDS, CAPTURES  # noqa: E402
 from clima_tpu_torch.ops.rorr import k_rorr_mix  # noqa: E402
 from clima_tpu_torch.parallel import make_column_fns  # noqa: E402
 from clima_tpu_torch.physics import eqns  # noqa: E402
@@ -106,6 +124,7 @@ B_COLS, K_INNER, NZ_TEMPLATE, N_ZEN = 256, 4, 100, 4
 NZ_R = 2 * NZ_TEMPLATE + 2  # flagship radiative grid (doubled + ghosts)
 ROOFLINE_ROWS, ROOFLINE_NZ = 256 * 60 * 8, 202  # scripts/roofline.py:69-71
 ENTRY_B, ENTRY_NZ = 8, 50  # __graft_entry__.entry
+RCE_NZ, RCE_SUBSTEPS = 20, 6  # tests/test_rce.py:17-18's depth
 HBM_BYTES_PER_S, FP64_OPS_PER_S = 3.35e12, 34e12  # H100 SXM data sheet (non-tensor FP64)
 F64 = 8
 
@@ -880,6 +899,28 @@ def march_ops_per_profile(c, T_surf, P_i, nz):
     return counts[0] + (counts[1] - counts[0]) * (nz - 2)
 
 
+def path_bounds(c, B, B_ir=None):
+    """The bound in ms of each of the three kernels of model ``c``'s radiate
+    call over B columns (the IR kernel over B_ir columns when given): bytes
+    over the memory rate or float64 operations over the FP64 peak."""
+    nz_r, nG, nw_ir, nw_sol, nw = c.nz_r, c.rad.op.kset.nbin, c.rad.ir.nw, c.rad.sol.nw, c.rad.op.nw
+    nzen = len(c.rad.zenith_u)
+    rows_ir, rows_sol, R = (B_ir or B) * nw_ir * nG, B * nw_sol * nG, B * nw * nz_r
+    work = {
+        "two_stream_ir_weighted": (F64 * (3 * rows_ir * nz_r + rows_ir + rows_ir * (nz_r + 1) + nG
+                                          + 2 * (rows_ir // nG) * (nz_r + 1)),
+                                   rows_ir * nz_r * twostream_ops(False)),
+        "two_stream_solar_multi_weighted": (
+            F64 * (3 * rows_sol * nz_r + rows_sol + 2 * nzen + nG
+                   + 2 * (rows_sol // nG) * (nz_r + 1)),
+            rows_sol * nz_r * twostream_ops(True, nzen)),
+        "k_rorr_mix": (F64 * (4 * nG * R + 2 * nG + 1),
+                       2 * R * nG * nG * (1 + np.log2(nG * nG) + 1 + 2)),
+    }
+    return {name: max(nbytes / HBM_BYTES_PER_S, ops / FP64_OPS_PER_S) * 1e3
+            for name, (nbytes, ops) in work.items()}
+
+
 def phase_adiabat_path(device, smi):
     print(f"== phase 5: the adiabat path (__graft_entry__.entry: B={ENTRY_B}, nz={ENTRY_NZ}, "
           f"{N_ZEN} zenith angles)")
@@ -957,21 +998,8 @@ def _adiabat_on_card(device, smi, conn):
         fns["toa_fluxes"](T_surf, P_i)
     sync(device)
     path_ms = {name: start.elapsed_time(end) for name, start, end in events}
-    nz_r, nG, nw_ir, nw_sol, nw = c.nz_r, c.rad.op.kset.nbin, c.rad.ir.nw, c.rad.sol.nw, c.rad.op.nw
-    rows_ir, rows_sol, R = ENTRY_B * nw_ir * nG, ENTRY_B * nw_sol * nG, ENTRY_B * nw * nz_r
-    bounds = {
-        "two_stream_ir_weighted": (F64 * (3 * rows_ir * nz_r + rows_ir + rows_ir * (nz_r + 1) + nG
-                                          + 2 * (rows_ir // nG) * (nz_r + 1)),
-                                   rows_ir * nz_r * twostream_ops(False)),
-        "two_stream_solar_multi_weighted": (
-            F64 * (3 * rows_sol * nz_r + rows_sol + 2 * N_ZEN + nG
-                   + 2 * (rows_sol // nG) * (nz_r + 1)),
-            rows_sol * nz_r * twostream_ops(True, N_ZEN)),
-        "k_rorr_mix": (F64 * (4 * nG * R + 2 * nG + 1),
-                       2 * R * nG * nG * (1 + np.log2(nG * nG) + 1 + 2)),
-    }
-    for name, (nbytes, ops) in bounds.items():
-        bound = max(nbytes / HBM_BYTES_PER_S, ops / FP64_OPS_PER_S) * 1e3
+    bounds = path_bounds(c, ENTRY_B)
+    for name, bound in bounds.items():
         print(f"  {name} at this path's shapes: {path_ms[name]:.4f} ms (CUDA events around the "
               f"wrapper call), bound {bound:.4f} ms")
 
@@ -1012,14 +1040,223 @@ def _adiabat_on_card(device, smi, conn):
     return launches
 
 
+def _rce_model(device):
+    tpl = make_template(nz=RCE_NZ, n_zenith=N_ZEN, surface_albedo=0.3)
+    c = AdiabatClimate(tpl["species"], tpl["settings"], tpl["star"], tpl["datadir"],
+                       substeps=RCE_SUBSTEPS, device=device)
+    c.verbose = False
+    P_i = np.full(c.sp.ng, 1.0e-15)
+    P_i[c.species_names.index("H2O")] = 270.0e6
+    P_i[c.species_names.index("CO2")] = 400.0
+    P_i[c.species_names.index("N2")] = 1.0e6
+    return c, P_i
+
+
+def _fluxes(c):
+    """The objective's flux state: f_total at the physical edges, each
+    channel's net flux profile and per-bin fluxes, host float64."""
+    w_ir, w_sol = c.rad.wrk_ir, c.rad.wrk_sol
+    return dict(f_total=rce._f_total_edges_precise(c), ir_net=w_ir.fdn_n - w_ir.fup_n,
+                sol_net=w_sol.fdn_n - w_sol.fup_n, ir_fup_a=w_ir.fup_a, ir_fdn_a=w_ir.fdn_a,
+                sol_fup_a=w_sol.fup_a, sol_fdn_a=w_sol.fdn_a)
+
+
+def _cpu_rce_objective(conn):
+    """Child process: the port on the CPU. Receives the card's final RCE state
+    (mask, T_surf, T, x, P_i), rebuilds make_profile_rc and the objective at
+    it, and sends back (state, fluxes, error)."""
+    try:
+        torch.set_num_threads(2)
+        c, _ = _rce_model("cpu")
+        mask, T_surf, T, x, P_i = conn.recv()
+        c._set_convecting_zones(mask)
+        c.T_surf, c.T = T_surf, T
+        rce._objective(c, P_i, x)
+        state = {k: getattr(c, k) for k in ("P", "T", "z", "lapse_rate", "lapse_rate_intended")}
+        conn.send((state, _fluxes(c), None))
+    except EOFError:  # the card's side ended before sending its state
+        pass
+    except Exception as e:  # reported to the parent, which raises
+        conn.send((None, None, repr(e)))
+    finally:
+        conn.close()
+
+
+def compare_fluxes(name, got, want):
+    """Flux arrays (host or device) at rtol 1e-9 and an atol of 1e-10 of
+    each array's largest value: near the top of the column the downward IR
+    flux and the net flux f_total fall to ~xtol_rc of the flux scale, where
+    the float64 roundoff of sums over ~10^5-sized terms (~1e-13 of the
+    scale) exceeds rtol 1e-9 of the entry. 1e-10 of the scale is ~1e-5
+    mW/m^2 at these fluxes, 1e5 times below the residual RCE converges to."""
+    for k in got:
+        g, w = torch.as_tensor(got[k]).cpu(), torch.as_tensor(want[k]).cpu()
+        compare(f"{name} {k}", [g], [w], atol=1e-10 * float(w.abs().max()))
+
+
+def phase_rce_path(device, smi):
+    print(f"== phase 6: the RCE path (AdiabatClimate.RCE: nz={RCE_NZ}, substeps={RCE_SUBSTEPS}, "
+          f"{N_ZEN} zenith angles, float64)")
+    ctx = multiprocessing.get_context("spawn")
+    conn, child_conn = ctx.Pipe()
+    child = ctx.Process(target=_cpu_rce_objective, args=(child_conn,))
+    child.start()
+    child_conn.close()
+    try:
+        return _rce_on_card(device, smi, conn)
+    finally:
+        conn.close()
+        child.join(timeout=600)
+        if child.is_alive():
+            child.terminate()
+            child.join()
+            raise AssertionError("the CPU objective evaluation did not finish in 600 s")
+
+
+def _rce_on_card(device, smi, conn):
+    t_phase = time.perf_counter()
+    c, P_i = _rce_model(None)
+    assert c.device.type == "cuda"
+    t0 = time.perf_counter()
+    T_warm = c.surface_temperature(P_i, T_guess=280.0)
+    print(f"  warm start: surface_temperature {T_warm:.10f} K in {time.perf_counter() - t0:.2f} s")
+
+    # instrumentation: counts and host-clock seconds of the path's parts
+    # (each closed by a device sync), and CUDA events around each kernel call
+    counts, secs, modes, calls, last = collections.Counter(), collections.Counter(), [], [], {}
+
+    def counted(name, fn):
+        def run(*args, **kwargs):
+            counts[name] += 1
+            return fn(*args, **kwargs)
+        return run
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            sync(device)
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            sync(device)
+            secs[name] += time.perf_counter() - t
+            return out
+        return run
+
+    def update(self, P_i_surf, T_in, mode):
+        modes.append(mode)
+        return update_zones(self, P_i_surf, T_in, mode)
+
+    def evented(name, wrapper):
+        def run(tau, *args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = wrapper(tau, *args, **kwargs)
+            end.record()
+            n = tau.shape[-1] if name == "k_rorr_mix" else tau.shape[0]
+            calls.append((name, n, start, end))
+            last[(name, n)] = (wrapper, (tau, *args), kwargs)
+            return out
+        return run
+
+    update_zones = rce._update_convecting_zones
+    captures0 = dict(CAPTURES)
+    torch.cuda.reset_peak_memory_stats(device)
+    _reset(RADTRAN_KERNELS)
+    t0 = time.perf_counter()
+    with mock.patch.object(rce, "_objective", counted("evaluations", rce._objective)), \
+            mock.patch.object(rce, "_jacobian_from_base",
+                              counted("jacobians", rce._jacobian_from_base)), \
+            mock.patch.object(rce, "_update_convecting_zones", update), \
+            mock.patch.object(rce, "make_profile_rc_core",
+                              timed("march", rce.make_profile_rc_core)), \
+            mock.patch.object(c.rad, "radiate", timed("radiate", c.rad.radiate)), \
+            mock.patch.object(c.rad, "ir_fluxes_batch",
+                              timed("jacobian IR batch", c.rad.ir_fluxes_batch)), \
+            mock.patch.object(opacity, "k_rorr_mix_cuda",
+                              evented("k_rorr_mix", rorr_cuda.k_rorr_mix_cuda)), \
+            mock.patch.object(radiate, "two_stream_ir_weighted_cuda", evented(
+                "two_stream_ir_weighted", twostream_cuda.two_stream_ir_weighted_cuda)), \
+            mock.patch.object(radiate, "two_stream_solar_multi_weighted_cuda", evented(
+                "two_stream_solar_multi_weighted",
+                twostream_cuda.two_stream_solar_multi_weighted_cuda)):
+        converged = c.RCE(P_i, T_warm, c.T.copy())
+    sync(device)
+    rce_s = time.perf_counter() - t0
+    launches = _launches(RADTRAN_KERNELS)
+    peak = torch.cuda.max_memory_allocated(device)
+    captured = {k: v - captures0.get(k, 0) for k, v in CAPTURES.items()
+                if v != captures0.get(k, 0)}
+    host_s = rce_s - sum(secs.values())
+    print(f"  converged {converged}; mode iterations {modes}; {counts['evaluations']} objective "
+          f"evaluations, {counts['jacobians']} Jacobians; final mask "
+          f"{''.join(str(int(v)) for v in c.convecting_with_below)}")
+    print(f"  T_surf {c.T_surf:.10f} K; RCE {rce_s:.2f} s ({smi}): "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items()) + f", host rest {host_s:.2f} s; "
+          f"graph captures {captured}; peak device memory {peak / 2**30:.3f} GiB")
+    rows = collections.defaultdict(list)
+    for name, n, start, end in calls:
+        rows[(name, n)].append(start.elapsed_time(end))
+    ir_rows = max(n for name, n in rows if name == "two_stream_ir_weighted")
+    print(f"  kernel launches on the RCE path: {launches}; #1's largest row count {ir_rows}")
+    nG, nw_ir = c.rad.op.kset.nbin, c.rad.ir.nw
+    for (name, n), ms in sorted(rows.items()):
+        B_ir = n // (nw_ir * nG) if name == "two_stream_ir_weighted" else None
+        bound = path_bounds(c, 1, B_ir)[name]
+        wrapper, args, kwargs = last[(name, n)]
+        kernel_ms = event_ms(lambda: wrapper(*args, **kwargs), device, reps=20)
+        print(f"  {name} at {n} rows/lanes: {len(ms)} calls in the path, mean "
+              f"{statistics.mean(ms):.4f} ms (CUDA events around each wrapper call); "
+              f"{kernel_ms:.4f} ms a call back to back (20 calls); bound {bound:.6f} ms")
+    if not converged:
+        raise AssertionError("RCE did not converge on the card")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the RCE path never launched: {launches}")
+    if captured.get("_rc_interval") != 1:
+        raise AssertionError(f"the RC interval graph was not captured exactly once: {captured}")
+    if not (np.isfinite(c.T).all() and np.isfinite(c.T_surf)):
+        raise AssertionError("non-finite RCE temperatures")
+
+    # the final state through the kernels and through their twins
+    T_in = np.concatenate([[c.T_surf], c.T])
+    rce._objective_fixed_profile(c, T_in, True, True)
+    on_card = _fluxes(c)
+    with twin_path():
+        rce._objective_fixed_profile(c, T_in, True, True)
+    compare_fluxes("RCE objective (kernel vs twin path)", on_card, _fluxes(c))
+    x = np.array([T_in[ind - 1] for ind in c._inds_Tx])
+    _, T_perts, _ = rce._perturbation_matrix(c, x)
+    batch = (T_perts[:, 0], rce._radiative_grid(T_perts[:, 1:]))
+    got = c.rad.ir_fluxes_batch(*batch)
+    with twin_path():
+        want = c.rad.ir_fluxes_batch(*batch)
+    compare_fluxes(f"RCE Jacobian IR batch, {len(x)} columns (kernel vs twin path)",
+                   dict(fup_n=got[0], fdn_n=got[1]), dict(fup_n=want[0], fdn_n=want[1]))
+    if _launches(RADTRAN_KERNELS) == launches:
+        raise AssertionError("the kernel side of the twin comparisons launched no kernel")
+
+    # the card's final state rebuilt by the port on the CPU
+    conn.send((c.convecting_with_below, c.T_surf, c.T, x, P_i))
+    rce._objective(c, P_i, x)
+    state, fluxes, err = conn.recv()
+    if err is not None:
+        raise AssertionError(f"the CPU objective evaluation failed: {err}")
+    compare("RCE final state P, T, z, lapse rates (card vs CPU port)",
+            [torch.tensor(getattr(c, k)) for k in state], [torch.tensor(v) for v in state.values()],
+            atol=0.0)
+    compare_fluxes("RCE objective (card vs CPU port)", _fluxes(c), fluxes)
+    print(f"  phase 6: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main():
     t0 = time.perf_counter()
     device, smi = phase_environment()
     phase_build()
     phase_kernels(device)
     launches = phase_dispatchers(device)
-    phase_radtran_path(device)
-    launches.update(phase_adiabat_path(device, smi))
+    for path in (phase_radtran_path(device), phase_adiabat_path(device, smi),
+                 phase_rce_path(device, smi)):
+        for name, n in path.items():
+            launches[name] = launches.get(name, 0) + n
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [dict(name=name, route="cuda", kernel=k["kernel"], source=k["source"],
                     replaces=k["replaces"], launches=launches[name],

@@ -9,9 +9,23 @@ imports JAX. Plain PyTorch twins of every kernel run on the CPU.
 
 from .utils.errors import ClimaException
 from .radtran import Radtran, ClimaRadtranWrk
-from .adiabat import AdiabatClimate
+from .adiabat import (
+    AdiabatClimate,
+    RCE_SOLVE_HYBRJ_ONLY,
+    RCE_SOLVE_PTC_THEN_HYBRJ,
+    RCE_SOLVE_HYBRJ_THEN_PTC_THEN_HYBRJ,
+)
 from .ops.rebin import rebin
 
 __version__ = "0.2.0"
 
-__all__ = ["ClimaException", "Radtran", "ClimaRadtranWrk", "AdiabatClimate", "rebin"]
+__all__ = [
+    "ClimaException",
+    "Radtran",
+    "ClimaRadtranWrk",
+    "AdiabatClimate",
+    "RCE_SOLVE_HYBRJ_ONLY",
+    "RCE_SOLVE_PTC_THEN_HYBRJ",
+    "RCE_SOLVE_HYBRJ_THEN_PTC_THEN_HYBRJ",
+    "rebin",
+]

@@ -4,8 +4,8 @@ Public surface mirrors the JAX package's ``clima_tpu.adiabat.AdiabatClimate``
 (and through it the reference Cython class ``AdiabatClimate.pyx``): profile
 constructors, TOA fluxes, surface-temperature solvers, particle setters,
 ocean-solubility callbacks, regridding/output utilities and the
-tidally-locked heat-redistribution parameters. The RCE methods are not part
-of the port yet.
+tidally-locked heat-redistribution parameters. RCE lives in :mod:`.rce`,
+which attaches its methods to the class, as the JAX package's does.
 
 Architecture: profile construction and the altitude integration run on the
 model's device as batches of one column (:mod:`.profile`, :mod:`.altitude`);
@@ -38,7 +38,12 @@ from .altitude import compute_altitude_core
 from .profile import AdiabatParams, make_profile_core
 from .profile_dry import make_profile_dry_core
 
-__all__ = ["AdiabatClimate", "FREE_PARAMETERS"]
+__all__ = ["AdiabatClimate", "FREE_PARAMETERS", "RCE_SOLVE_HYBRJ_ONLY",
+           "RCE_SOLVE_PTC_THEN_HYBRJ", "RCE_SOLVE_HYBRJ_THEN_PTC_THEN_HYBRJ"]
+
+RCE_SOLVE_HYBRJ_ONLY = 1
+RCE_SOLVE_PTC_THEN_HYBRJ = 2
+RCE_SOLVE_HYBRJ_THEN_PTC_THEN_HYBRJ = 3
 
 # Host attributes a user may set between calls; AdiabatClimate.from_reference
 # copies them (and the substeps, particle grids and Radtran surface settings).
@@ -47,6 +52,11 @@ FREE_PARAMETERS = (
     "solve_for_T_trop", "albedo_fcn", "ocean_fcns", "ocean_args_p",
     "tidally_locked_dayside", "L", "chi", "n_LW", "Cd", "surface_heat_flow",
     "reference_pressure", "rtol", "atol", "tol_make_column", "verbose",
+    "epsj", "xtol_rc", "dt_increment", "max_rc_iters", "max_rc_iters_convection",
+    "compute_solar_in_jac", "rce_solve_strategy", "convective_newton_step_size",
+    "convective_hysteresis_frac_on", "convective_hysteresis_frac_off",
+    "convective_hysteresis_min", "convective_max_boundary_shift", "prevent_overconvection",
+    "require_mode2",
 )
 _RAD_PARAMETERS = ("surface_albedo", "surface_emissivity", "has_hard_surface", "ir_tau_min",
                    "diurnal_fac", "photon_scale_factor")
@@ -111,7 +121,21 @@ class AdiabatClimate:
         self.rtol = 1.0e-9
         self.atol = 1.0e-12
         self.tol_make_column = 1.0e-8
+        self.epsj = 1.0e-2
+        self.xtol_rc = 1.0e-5
+        self.dt_increment = 1.5
+        self.max_rc_iters = 30
+        self.max_rc_iters_convection = 5
+        self.compute_solar_in_jac = False
+        self.rce_solve_strategy = RCE_SOLVE_HYBRJ_THEN_PTC_THEN_HYBRJ
         self.verbose = True
+        self.convective_newton_step_size = 1.0e-1
+        self.convective_hysteresis_frac_on = 2.0e-2
+        self.convective_hysteresis_frac_off = 2.0e-2
+        self.convective_hysteresis_min = 1.0e-3
+        self.convective_max_boundary_shift = -1
+        self.prevent_overconvection = True
+        self.require_mode2 = True
 
         self.double_radiative_grid = double_radiative_grid
         self.nz_r = 2 * self.nz + 2 if double_radiative_grid else self.nz
@@ -142,9 +166,17 @@ class AdiabatClimate:
         self.pdensities = np.zeros((nz, np_))
         self.pradii = np.full((nz, np_), 1.0e-4)
 
+        # convection bookkeeping (filled by make_profile / RCE)
         self.convecting_with_below = np.zeros(nz, dtype=bool)
+        self.super_saturated = np.zeros(nz, dtype=bool)
         self.lapse_rate = np.zeros(nz)
         self.lapse_rate_intended = np.zeros(nz)
+        self.n_convecting_zones = 0
+
+        # custom mixing ratios (set via RCE)
+        self.sp_custom = np.zeros(ng, dtype=bool)
+        self._mix_custom_grid = None  # (log10P ascending, log10mix (nP, ng))
+        self._rc_graphs = {}  # the RC march's captured interval, by shape (CUDA)
 
         # particle interpolators: default no particles, 1 micron radii
         P_default = 10.0 ** np.linspace(0.0, -5.0, nz)

@@ -21,10 +21,12 @@ import time
 
 import torch
 
-__all__ = ["graphed", "CAPTURE_SECONDS"]
+__all__ = ["graphed", "CAPTURE_SECONDS", "CAPTURES"]
 
 # function name -> seconds spent capturing graphs of it (warm-up run included)
 CAPTURE_SECONDS = {}
+# function name -> graphs captured of it
+CAPTURES = {}
 
 
 def graphed(fn, *inputs):
@@ -48,6 +50,7 @@ def graphed(fn, *inputs):
         outputs = fn(*static)
     name = getattr(fn, "func", fn).__name__  # a functools.partial names its function
     CAPTURE_SECONDS[name] = CAPTURE_SECONDS.get(name, 0.0) + time.perf_counter() - t0
+    CAPTURES[name] = CAPTURES.get(name, 0) + 1
 
     def replay(*args):
         for buf, a in zip(static, args):

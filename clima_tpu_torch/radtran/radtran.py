@@ -177,13 +177,7 @@ class Radtran:
                 self._custom,
             )
 
-        ir_slice = (self.ir.ind_start, self.ir.ind_end)
-        ir_res = radiate_ir(
-            ir_slice, op.freq, op.kset.wbin, self._opr,
-            self._t(self.surface_emissivity)[0], self.has_hard_surface, self.ir_tau_min,
-            self._t(T_surface), T_t,
-        )
-        self._store(self.wrk_ir, ir_res, op.freq[ir_slice[0] : ir_slice[1] + 2])
+        self._store(self.wrk_ir, self._ir_fn(self._opr, self._t(T_surface), T_t))
 
         if compute_solar:
             sol_slice = (self.sol.ind_start, self.sol.ind_end)
@@ -193,15 +187,44 @@ class Radtran:
                 self._t(self.photons_sol * self.photon_scale_factor)[0],
                 self._t(self.zenith_u)[0], self._t(self.zenith_weights)[0],
             )
-            self._store(self.wrk_sol, sol_res, op.freq[sol_slice[0] : sol_slice[1] + 2])
+            sol_res["fup_n"], sol_res["fdn_n"] = integrate_fluxes(
+                sol_res["fup_a"], sol_res["fdn_a"], op.freq[sol_slice[0] : sol_slice[1] + 2])
+            self._store(self.wrk_sol, sol_res)
 
         self._set_f_total()
 
+    def _ir_fn(self, opr, T_surface, T):
+        """IR radiative transfer of a batch of columns on the opacities ``opr``
+        (each of its tensors with a leading column axis of the batch's size,
+        or of 1 to share one column's opacities): T_surface (B,), T (B, nz)
+        ground-up. Returns radiate_ir's dict plus the frequency-integrated
+        ``fup_n``/``fdn_n`` (B, nz+1)."""
+        op = self.op
+        i0, i1 = self.ir.ind_start, self.ir.ind_end
+        B = T.shape[0]
+        opr = {k: v.expand(B, *v.shape[1:]) for k, v in opr.items()}
+        res = radiate_ir((i0, i1), op.freq, op.kset.wbin, opr,
+                         self._t(self.surface_emissivity)[0], self.has_hard_surface,
+                         self.ir_tau_min, T_surface, T)
+        res["fup_n"], res["fdn_n"] = integrate_fluxes(res["fup_a"], res["fdn_a"],
+                                                      op.freq[i0 : i1 + 2])
+        return res
+
+    def ir_fluxes_batch(self, T_surface, T):
+        """IR fluxes of a batch of temperature columns on the opacities of the
+        last :meth:`radiate` call (frozen): T_surface (B,), T (B, nz)
+        ground-up, host arrays. Returns (fup_n, fdn_n), (B, nz+1) tensors on
+        the model's device, mW/m^2. The RCE finite-difference Jacobian runs
+        its column perturbations through this one call."""
+        if self._opr is None:
+            raise ClimaException("ir_fluxes_batch needs the opacities of a radiate call")
+        res = self._ir_fn(self._opr, self._t(T_surface)[0], self._t(T)[0])
+        return res["fup_n"], res["fdn_n"]
+
     @staticmethod
-    def _store(w, res, freq_channel):
-        fup_n, fdn_n = integrate_fluxes(res["fup_a"], res["fdn_a"], freq_channel)
+    def _store(w, res):
         w._fup_a, w._fdn_a = res["fup_a"][0], res["fdn_a"][0]
-        w._fup_n, w._fdn_n = fup_n[0], fdn_n[0]
+        w._fup_n, w._fdn_n = res["fup_n"][0], res["fdn_n"][0]
         w._amean = res["amean"][0]
         w._tau_band = res["tau_band"][0]
 

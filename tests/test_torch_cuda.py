@@ -1,21 +1,24 @@
 """The port's CUDA kernels against their plain twins on the card (float64,
 RORR and the weighted kernels also in float32, RORR on ties; small shapes),
-the nbin > 16 RORR routing and AdiabatClimate on the card. Skipped where no
+the nbin > 16 RORR routing, AdiabatClimate on the card and the RCE path's
+pieces (the batched IR call, the RC march's cached CUDA graph). Skipped where no
 CUDA device is present; on a GPU machine:
 ``python -m pytest --noconftest tests/test_torch_cuda.py -m cuda`` (the
 suite's conftest configures JAX, which a GPU machine need not have)."""
 
+import dataclasses
 from unittest import mock
 
 import numpy as np
 import pytest
 import torch
 
-from clima_tpu_torch.adiabat import AdiabatClimate
+from clima_tpu_torch.adiabat import AdiabatClimate, profile_rc, rce
 from clima_tpu_torch.data import make_template
 from clima_tpu_torch.ops import rorr, rorr_cuda, twostream, twostream_cuda
+from clima_tpu_torch.ops.cuda_graph import CAPTURES
 from clima_tpu_torch.physics import eqns
-from clima_tpu_torch.radtran import opacity
+from clima_tpu_torch.radtran import opacity, radiate
 from clima_tpu_torch.radtran.opacity import _rorr_mix
 
 pytestmark = pytest.mark.cuda
@@ -290,3 +293,80 @@ def test_adiabat_climate_on_the_card_matches_the_cpu(dev):
     np.testing.assert_allclose(gpu.TOA_fluxes(285.0, P_i), cpu.TOA_fluxes(285.0, P_i), rtol=1e-9)
     for k in ("P", "T", "z", "f_i", "N_atmos"):
         np.testing.assert_allclose(getattr(gpu, k), getattr(cpu, k), rtol=1e-10, err_msg=k)
+
+
+def _rce_model(nz=20):
+    tpl = make_template(nz=nz, n_zenith=1, surface_albedo=0.3)
+    c = AdiabatClimate(tpl["species"], tpl["settings"], tpl["star"], tpl["datadir"], substeps=2)
+    c.verbose = False
+    P_i = np.full(c.sp.ng, 1e-15)
+    P_i[c.species_names.index("H2O")] = 270e6
+    P_i[c.species_names.index("CO2")] = 400.0
+    P_i[c.species_names.index("N2")] = 1e6
+    return c, P_i
+
+
+def test_ir_fluxes_batch_matches_twin(dev):
+    """The RCE Jacobian's batched IR call at n = 21 columns through the IR
+    kernel (#1), against the same call with the kernel swapped for its twin:
+    rtol 1e-9 and an atol of 1e-10 of the largest flux, since the downward
+    flux falls to ~0 at the top, below the roundoff of sums over the
+    ~1e5-sized fluxes (chip_smoke.py's compare_fluxes)."""
+    c, P_i = _rce_model()
+    c.TOA_fluxes(285.0, P_i)  # opacities of this column, frozen below
+    rng = np.random.default_rng(23)
+    T_r, *_ = c.copy_atm_to_radiative_grid()
+    T_surf = 285.0 + rng.uniform(-3.0, 3.0, 21)
+    T = T_r[None, :] + rng.uniform(-3.0, 3.0, (21, T_r.shape[0]))
+    n = twostream_cuda.two_stream_ir_weighted_cuda.launches
+    got = c.rad.ir_fluxes_batch(T_surf, T)
+    assert twostream_cuda.two_stream_ir_weighted_cuda.launches == n + 1
+    assert got[0].shape == (21, c.nz_r + 1)
+    with mock.patch.object(radiate, "two_stream_ir_weighted_cuda",
+                           twostream.two_stream_ir_weighted):
+        want = c.rad.ir_fluxes_batch(T_surf, T)
+    assert twostream_cuda.two_stream_ir_weighted_cuda.launches == n + 1
+    for g, w in zip(got, want):
+        w = w.cpu().numpy()
+        np.testing.assert_allclose(g.cpu().numpy(), w, rtol=1e-9, atol=1e-10 * np.abs(w).max())
+
+
+def _rc_inputs(c, P_i, mask, T_top):
+    t = c._tensor
+    T_in = np.linspace(285.0, T_top, c.nz + 1)
+    return (dataclasses.replace(c._par, P_top=float(c.P_top)), t(c.RH), t(T_in[0]), t(T_in[1:]),
+            t(P_i), torch.as_tensor(mask, device=c.device), rce._custom_mix(c))
+
+
+def test_rc_march_graphed_matches_eager(dev):
+    """make_profile_rc_core on the card replaying the captured interval
+    against the same march run eagerly on the card, rtol 1e-12."""
+    c, P_i = _rce_model()
+    args = _rc_inputs(c, P_i, np.arange(c.nz) < 6, 190.0)
+    got = profile_rc.make_profile_rc_core(*args, graphs={})
+    with mock.patch.object(profile_rc, "graphed", lambda fn, *a: (fn, fn(*a))):
+        want = profile_rc.make_profile_rc_core(*args)
+    for k, w in want.items():
+        np.testing.assert_allclose(got[k].cpu().numpy(), w.cpu().numpy(), rtol=1e-12,
+                                   atol=1e-300, err_msg=k)
+
+
+def test_rc_graph_captured_once_per_shape(dev):
+    """Two masks and two temperature profiles through make_profile_rc: one
+    capture of the RC interval, cached on the model; each result matches the
+    port on the CPU at rtol 1e-10."""
+    c, P_i = _rce_model()
+    tpl = make_template(nz=20, n_zenith=1, surface_albedo=0.3)
+    cpu = AdiabatClimate(tpl["species"], tpl["settings"], tpl["star"], tpl["datadir"],
+                         substeps=2, device="cpu")
+    n = CAPTURES.get("_rc_interval", 0)
+    for mask in (np.arange(c.nz) < 6, (np.arange(c.nz) < 3) | (np.arange(c.nz) >= 15)):
+        for T_top in (190.0, 210.0):
+            T_in = np.linspace(285.0, T_top, c.nz + 1)
+            for m in (c, cpu):
+                m._set_convecting_zones(mask)
+                m.make_profile_rc(P_i, T_in)
+            for k in ("P", "T", "z", "f_i", "lapse_rate"):
+                np.testing.assert_allclose(getattr(c, k), getattr(cpu, k), rtol=1e-10, err_msg=k)
+    assert CAPTURES.get("_rc_interval", 0) == n + 1
+    assert len(c._rc_graphs) == 1

@@ -4,6 +4,8 @@ import os
 import subprocess
 import sys
 
+import clima_tpu
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 MODULES = [
@@ -28,11 +30,14 @@ MODULES = [
     "clima_tpu_torch.ops.cuda_graph",
     "clima_tpu_torch.physics.saturation",
     "clima_tpu_torch.solvers.newton",
+    "clima_tpu_torch.solvers.ptc",
     "clima_tpu_torch.adiabat",
     "clima_tpu_torch.adiabat.profile",
     "clima_tpu_torch.adiabat.altitude",
     "clima_tpu_torch.adiabat.profile_dry",
     "clima_tpu_torch.adiabat.adiabat",
+    "clima_tpu_torch.adiabat.profile_rc",
+    "clima_tpu_torch.adiabat.rce",
     "clima_tpu_torch.parallel",
     "clima_tpu_torch.parallel.pipeline",
     "clima_tpu_torch.tools.compare_twostream_builds",
@@ -57,3 +62,17 @@ def test_port_imports_without_jax():
                          text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+def test_rce_surface_matches_reference():
+    """The package exports the three RCE solve strategies with the JAX
+    package's values, and AdiabatClimate has the RCE methods it attaches."""
+    import clima_tpu_torch
+    from clima_tpu_torch.adiabat import AdiabatClimate
+
+    for name in ("RCE_SOLVE_HYBRJ_ONLY", "RCE_SOLVE_PTC_THEN_HYBRJ",
+                 "RCE_SOLVE_HYBRJ_THEN_PTC_THEN_HYBRJ"):
+        assert name in clima_tpu_torch.__all__
+        assert getattr(clima_tpu_torch, name) == getattr(clima_tpu, name)
+    for name in ("make_profile_rc", "RCE", "_set_convecting_zones", "_update_convecting_zones"):
+        assert callable(getattr(AdiabatClimate, name))
