@@ -80,17 +80,31 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    evaluations, Jacobians, final mask, T_surf, the time split (march,
    radiative transfer, the Jacobian's IR batch, the rest on the host), the
    graph captures, peak memory, the kernels' launches and times at the
-   path's shapes and #1's largest row count.
+   path's shapes and #1's largest row count;
+7. the batched solver path: ``parallel.batched_surface_temperature_column``
+   on phase 5's model over the entry batch's 8 columns, the targets their
+   inventories N_atmos + N_surface from ``profile_only`` on the card (the
+   joint system of T_surf and the ng partial pressures, each residual one
+   batched ``column_model`` call through RORR, #1 and #2). Every lane must
+   converge (status 0) and each of the three kernels launch; at the
+   solution ISR/OLR through the kernels are checked against the twins
+   (rtol 1e-9), and a CPU process of the port evaluates ``column_model``
+   and ``profile_only`` there (ISR, OLR, N rtol 1e-8; its residual norm
+   below 2 tol). Reports the solve's seconds, its ``column_model`` calls
+   with their column counts and seconds, the graph captures and their
+   seconds, peak memory, and the three kernels' times back to back and
+   bounds at the line search's shape (the largest call).
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; the kernels of a path must each have launched. The
 second-to-last line is a JSON object with each kernel's numbers (its
-launches summed over the radtran, adiabat and RCE paths); the last line is
-the device JSON.
+launches summed over the radtran, adiabat, RCE and solver paths); the last
+line is the device JSON.
 """
 
 import collections
 import contextlib
+import functools
 import json
 import multiprocessing
 import os
@@ -115,7 +129,7 @@ from clima_tpu_torch.data import make_template  # noqa: E402
 from clima_tpu_torch.ops import cuda_build, rorr_cuda, twostream, twostream_cuda  # noqa: E402
 from clima_tpu_torch.ops.cuda_graph import CAPTURE_SECONDS, CAPTURES  # noqa: E402
 from clima_tpu_torch.ops.rorr import k_rorr_mix  # noqa: E402
-from clima_tpu_torch.parallel import make_column_fns  # noqa: E402
+from clima_tpu_torch.parallel import make_column_fns, solvers  # noqa: E402
 from clima_tpu_torch.physics import eqns  # noqa: E402
 from clima_tpu_torch.radtran import Radtran, opacity, radiate  # noqa: E402
 
@@ -851,7 +865,10 @@ def entry_batch(c, B=ENTRY_B):
     return np.linspace(270.0, 300.0, B), P_i
 
 
+@functools.lru_cache(maxsize=None)
 def _entry_model(device):
+    """The entry workload's model, built once per process and device (phases
+    5 and 7 share the card's)."""
     tpl = make_template(nz=ENTRY_NZ, n_zenith=N_ZEN)
     return AdiabatClimate(tpl["species"], tpl["settings"], tpl["star"], tpl["datadir"],
                           device=device)
@@ -1025,7 +1042,10 @@ def _adiabat_on_card(device, smi, conn):
 
     c.TOA_fluxes = counted
     t0 = time.perf_counter()
-    T_card = c.surface_temperature(P_np[0], T_guess=280.0)
+    try:
+        T_card = c.surface_temperature(P_np[0], T_guess=280.0)
+    finally:
+        del c.TOA_fluxes  # the model is phase 7's too
     solve_s = time.perf_counter() - t0
     print(f"  surface_temperature on the card: {T_card:.10f} K in {solve_s:.2f} s, "
           f"{evals['toa']} TOA_fluxes evaluations")
@@ -1247,6 +1267,199 @@ def _rce_on_card(device, smi, conn):
     return launches
 
 
+def _cpu_column_at(conn):
+    """Child process: the port on the CPU. Builds the entry model, receives
+    the card's solution (T_surf, P_i_surf) and the targets N, evaluates
+    column_model and profile_only there and sends (ISR, OLR, N from each,
+    the residual norm, seconds, error)."""
+    try:
+        torch.set_num_threads(2)
+        c = _entry_model("cpu")
+        fns = make_column_fns(c)
+        T_surf, P_i, N_target = (torch.tensor(a) for a in conn.recv())
+        t0 = time.perf_counter()
+        m = fns["column_model"](T_surf, P_i, float(c.T_trop))
+        only = fns["profile_only"](T_surf, P_i, float(c.T_trop))
+        fnorm = column_residual_norm(m, N_target, float(c.surface_heat_flow))
+        conn.send((dict(ISR=m["ISR"].numpy(), OLR=m["OLR"].numpy(),
+                        N=(m["N_atmos"] + m["N_surface"]).numpy(),
+                        N_profile_only=(only["N_atmos"] + only["N_surface"]).numpy()),
+                   fnorm.numpy(), time.perf_counter() - t0, None))
+    except EOFError:  # the card's side ended before sending its solution
+        pass
+    except Exception as e:  # reported to the parent, which raises
+        conn.send((None, None, None, repr(e)))
+    finally:
+        conn.close()
+
+
+def column_residual_norm(m, N_target, surface_heat_flow):
+    """max |r / s| per column of batched_surface_temperature_column's joint
+    system: energy balance over max(|ISR|, 1), N - N_target over |N_target|."""
+    r_e = (m["ISR"] - m["OLR"] + surface_heat_flow).abs() / m["ISR"].abs().clamp(min=1.0)
+    r_n = (m["N_atmos"] + m["N_surface"] - N_target).abs() / N_target.abs().clamp(min=1e-30)
+    return torch.maximum(r_e, r_n.amax(dim=1))
+
+
+def phase_solver_path(device, smi):
+    print(f"== phase 7: the batched solver path (batched_surface_temperature_column: "
+          f"B={ENTRY_B}, nz={ENTRY_NZ}, {N_ZEN} zenith angles, float64)")
+    ctx = multiprocessing.get_context("spawn")
+    conn, child_conn = ctx.Pipe()
+    child = ctx.Process(target=_cpu_column_at, args=(child_conn,))
+    child.start()
+    child_conn.close()
+    try:
+        return _solver_on_card(device, smi, conn)
+    finally:
+        conn.close()
+        child.join(timeout=600)
+        if child.is_alive():
+            child.terminate()
+            child.join()
+            raise AssertionError("the CPU column evaluation did not finish in 600 s")
+
+
+def _solver_on_card(device, smi, conn):
+    t_phase = time.perf_counter()
+    c = _entry_model(None)
+    assert c.device.type == "cuda"
+    T_np, P_np = entry_batch(c)
+    fns = make_column_fns(c)
+    T_trop, tol = float(c.T_trop), 1.0e-8
+    only = fns["profile_only"](torch.tensor(T_np, device=device),
+                               torch.tensor(P_np, device=device), T_trop)
+    N_target = only["N_atmos"] + only["N_surface"]  # the solve's only input
+
+    # instrumentation: each column_model call's column count and host-clock
+    # seconds (closed by a device sync), CUDA events around each kernel call
+    calls, last = [], {}
+
+    def counted_fns(model):
+        out = make_column_fns(model)
+        column_model = out["column_model"]
+
+        def run(T_surf, P_i, T_trop):
+            t = time.perf_counter()
+            m = column_model(T_surf, P_i, T_trop)
+            sync(device)
+            calls.append((T_surf.shape[0], time.perf_counter() - t))
+            return m
+        return dict(out, column_model=run)
+
+    def evented(name, wrapper):
+        def run(tau, *args, **kwargs):
+            n = tau.shape[-1] if name == "k_rorr_mix" else tau.shape[0]
+            last[(name, n)] = (wrapper, (tau, *args), kwargs)
+            return wrapper(tau, *args, **kwargs)
+        return run
+
+    captures0, capture_s0 = dict(CAPTURES), dict(CAPTURE_SECONDS)
+    torch.cuda.reset_peak_memory_stats(device)
+    _reset(RADTRAN_KERNELS)
+    t0 = time.perf_counter()
+    with mock.patch.object(solvers, "make_column_fns", counted_fns), \
+            mock.patch.object(opacity, "k_rorr_mix_cuda",
+                              evented("k_rorr_mix", rorr_cuda.k_rorr_mix_cuda)), \
+            mock.patch.object(radiate, "two_stream_ir_weighted_cuda", evented(
+                "two_stream_ir_weighted", twostream_cuda.two_stream_ir_weighted_cuda)), \
+            mock.patch.object(radiate, "two_stream_solar_multi_weighted_cuda", evented(
+                "two_stream_solar_multi_weighted",
+                twostream_cuda.two_stream_solar_multi_weighted_cuda)):
+        out = solvers.batched_surface_temperature_column(c, N_target, T_guess=280.0, tol=tol)
+    sync(device)
+    solve_s = time.perf_counter() - t0
+    launches = _launches(RADTRAN_KERNELS)
+    peak = torch.cuda.max_memory_allocated(device)
+    captured = {k: v - captures0.get(k, 0) for k, v in CAPTURES.items()
+                if v != captures0.get(k, 0)}
+    capture_s = {k: round(v - capture_s0.get(k, 0.0), 3) for k, v in CAPTURE_SECONDS.items()
+                 if k in captured}
+    T_sol, P_sol, status = out["T_surf"], out["P_i_surf"], out["status"]
+    model_s = sum(sec for _, sec in calls)
+    print(f"  T_surf {T_sol.cpu().numpy()} K")
+    print(f"  status {status.cpu().numpy()}, fnorm {out['fnorm'].cpu().numpy()}")
+    print(f"  solve {solve_s:.2f} s ({smi}): {len(calls)} column_model calls, {model_s:.2f} s "
+          f"in them, the rest {solve_s - model_s:.2f} s; columns per call "
+          f"{[n for n, _ in calls]}; seconds per call {[round(sec, 2) for _, sec in calls]}")
+    print(f"  graph captures {captured}, capture seconds {capture_s}; peak device memory "
+          f"{peak / 2**30:.3f} GiB")
+    print(f"  kernel launches on the solver path: {launches}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the solver path never launched: {launches}")
+    if not bool((status == 0).all()):
+        raise AssertionError(f"a lane of the batched solve did not converge: {status}")
+
+    # the CPU port evaluates the solution while the card goes on
+    conn.send(tuple(a.cpu().numpy() for a in (T_sol, P_sol, N_target)))
+
+    # each kernel against its twin on the last inputs the solve gave it at
+    # each of its shapes (the solution's, the Jacobian's, the line search's
+    # and the floor's column counts). The IR outputs are ~1e-8 in the
+    # model's units, where ATOL alone would pass a 1e-4 relative error, so
+    # each output's atol is also capped at 1e-10 of its largest value
+    twins = {"two_stream_ir_weighted": (twostream.two_stream_ir_weighted, ("fup", "fdn")),
+             "two_stream_solar_multi_weighted": (twostream.two_stream_solar_multi_weighted,
+                                                 ("amean", "fup", "fdn")),
+             "k_rorr_mix": (_rorr_twin, ("tau",))}
+    for (name, n), (wrapper, args, kwargs) in sorted(last.items()):
+        twin, outputs = twins[name]
+        got, want = wrapper(*args, **kwargs), twin(*args, **kwargs)
+        if torch.is_tensor(got):
+            got, want = [got], [want]
+        for output, g, w in zip(outputs, got, want):
+            if w is None:
+                continue
+            scale = float(w.abs().max())
+            print(f"  {name} {output} at {n} rows/lanes: largest value {scale:.3e}")
+            compare(f"{name} {output} at {n} rows/lanes of the solver path (kernel vs twin)",
+                    [g], [w], atol=min(ATOL, 1e-10 * scale))
+        del got, want
+    checked = _launches(RADTRAN_KERNELS)
+    if any(checked[k] == launches[k] for k in RADTRAN_KERNELS):
+        raise AssertionError(f"the kernel side of the twin comparisons did not launch every "
+                             f"kernel: {launches} -> {checked}")
+
+    # the three kernels at the line search's shape (the largest call)
+    n_cols = max(n for n, _ in calls)
+    nG, nw_ir, nw_sol = c.rad.op.kset.nbin, c.rad.ir.nw, c.rad.sol.nw
+    shape = {"two_stream_ir_weighted": n_cols * nw_ir * nG,
+             "two_stream_solar_multi_weighted": n_cols * nw_sol * nG,
+             "k_rorr_mix": n_cols * c.rad.op.nw * c.nz_r}
+    bounds = path_bounds(c, n_cols)
+    for name, n in shape.items():
+        wrapper, args, kwargs = last[(name, n)]
+        kernel_ms = event_ms(lambda: wrapper(*args, **kwargs), device, reps=20)
+        print(f"  {name} at {n} rows/lanes ({n_cols} columns): {kernel_ms:.4f} ms a call back "
+              f"to back (20 calls, CUDA events), bound {bounds[name]:.4f} ms")
+
+    # the solution through the kernels and through their twins
+    m = fns["column_model"](T_sol, P_sol, T_trop)
+    with twin_path():
+        m_p = fns["column_model"](T_sol, P_sol, T_trop)
+    compare("solver path ISR/OLR at the solution (kernel vs twin path)",
+            [m["ISR"], m["OLR"]], [m_p["ISR"], m_p["OLR"]], atol=0.0)
+    fnorm = column_residual_norm(m, N_target, float(c.surface_heat_flow))
+    print(f"  residual norm at the solution on the card: {fnorm.cpu().numpy()}")
+
+    # the solution evaluated by the port on the CPU
+    cpu, fnorm_cpu, cpu_s, err = conn.recv()
+    if err is not None:
+        raise AssertionError(f"the CPU column evaluation failed: {err}")
+    print(f"  CPU port at the solution: {cpu_s:.2f} s; residual norm {fnorm_cpu}")
+    N_card = (m["N_atmos"] + m["N_surface"]).cpu()
+    only = fns["profile_only"](T_sol, P_sol, T_trop)
+    compare("solver path ISR, OLR, N, profile_only N at the solution (card vs CPU port)",
+            [m["ISR"].cpu(), m["OLR"].cpu(), N_card, (only["N_atmos"] + only["N_surface"]).cpu()],
+            [torch.tensor(cpu[k]) for k in ("ISR", "OLR", "N", "N_profile_only")],
+            rtol=1e-8, atol=0.0)
+    if not bool((torch.tensor(fnorm_cpu) < 2.0 * tol).all()):
+        raise AssertionError(f"the CPU port's residual norm at the card's solution is not "
+                             f"below 2 tol: {fnorm_cpu}")
+    print(f"  phase 7: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main():
     t0 = time.perf_counter()
     device, smi = phase_environment()
@@ -1254,7 +1467,7 @@ def main():
     phase_kernels(device)
     launches = phase_dispatchers(device)
     for path in (phase_radtran_path(device), phase_adiabat_path(device, smi),
-                 phase_rce_path(device, smi)):
+                 phase_rce_path(device, smi), phase_solver_path(device, smi)):
         for name, n in path.items():
             launches[name] = launches.get(name, 0) + n
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -15,7 +15,7 @@ from .adiabat import (
     RCE_SOLVE_PTC_THEN_HYBRJ,
     RCE_SOLVE_HYBRJ_THEN_PTC_THEN_HYBRJ,
 )
-from .ops.rebin import rebin
+from .ops.rebin import rebin, rebin_with_errors
 
 __version__ = "0.2.0"
 
@@ -28,4 +28,5 @@ __all__ = [
     "RCE_SOLVE_PTC_THEN_HYBRJ",
     "RCE_SOLVE_HYBRJ_THEN_PTC_THEN_HYBRJ",
     "rebin",
+    "rebin_with_errors",
 ]

@@ -10,18 +10,16 @@ checkout. Nothing here runs at import time.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
-import subprocess
 import threading
-import time
+
+from ..utils.shared_library import build_shared
 
 __all__ = ["load_library", "BUILD_INFO"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
-_BUILD = os.path.join(_PKG, "_build")
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -62,22 +60,9 @@ def load_library(name):
     with lock:
         if name in _LIBS:
             return _LIBS[name]
-        src = os.path.join(_CSRC, name + ".cu")
-        with open(src, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(_FLAGS).encode()).hexdigest()[:16]
-        out = os.path.join(_BUILD, f"lib{name}-{digest}.so")
-        t0 = time.perf_counter()
-        log = ""
-        if not os.path.exists(out):
-            os.makedirs(_BUILD, exist_ok=True)
-            tmp = f"{out}.{os.getpid()}.tmp"
-            res = subprocess.run([_nvcc(), *_FLAGS, "-o", tmp, src],
-                                 capture_output=True, text=True)
-            log = res.stdout + res.stderr
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src}:\n{log}")
-            os.replace(tmp, out)
-        BUILD_INFO[name] = {"seconds": time.perf_counter() - t0, "log": log}
+        out, seconds, log = build_shared(_nvcc(), _FLAGS, os.path.join(_CSRC, name + ".cu"),
+                                         f"lib{name}")
+        BUILD_INFO[name] = {"seconds": seconds, "log": log}
         lib = ctypes.CDLL(out)
         fns = {}
         for fname, argtypes in _SIGNATURES[name].items():

@@ -4,15 +4,62 @@ These reimplement the semantics of the reference's vendored ``futils``
 routines (`rebin`, `inter2`, `addpnt`, `interp_discrete_to_bins`), which
 define the opacity-grid semantics of the model (reference usage at
 ``src/radtran/clima_radtran_types_create.f90:9-78``). They run at data-load
-time only. The conservative rebin is formulated through the cumulative
-integral of the piecewise-constant source function.
+time only. ``rebin`` and ``inter2`` run the native C++ merge sweeps of
+``csrc/futils.cpp``, as the JAX package does: the library is built with
+``g++ -O3 -shared -fPIC`` into ``clima_tpu_torch/_build/`` on first use and
+bound with ``ctypes``. No ``-march=native``, so a library built on one
+machine loads on another. A failed build, and a non-zero status from the
+library, raise; nothing falls back to numpy. Nothing here runs at import
+time.
 """
 
 from __future__ import annotations
 
+import ctypes
+import os
+import shutil
+import threading
+
 import numpy as np
 
-__all__ = ["rebin", "inter2", "addpnt", "interp_discrete_to_bins"]
+from ..utils.shared_library import build_shared
+
+__all__ = ["rebin", "rebin_with_errors", "inter2", "addpnt", "interp_discrete_to_bins"]
+
+_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc",
+                    "futils.cpp")
+_FLAGS = ["-O3", "-shared", "-fPIC"]
+_LOCK = threading.Lock()
+_LIB = None
+_I64, _DP = ctypes.c_int64, ctypes.POINTER(ctypes.c_double)
+
+
+def _native_lib():
+    """The ctypes library of ``csrc/futils.cpp``, built first if needed."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            cxx = shutil.which("g++")
+            if cxx is None:
+                raise RuntimeError("g++ not found: the native futils library needs a C++ "
+                                   "compiler")
+            lib = ctypes.CDLL(build_shared(cxx, _FLAGS, _SRC, "libfutils")[0])
+            for name in ("clima_rebin", "clima_inter2"):
+                fn = getattr(lib, name)
+                fn.argtypes = [_I64, _DP, _DP, _I64, _DP, _DP]
+                fn.restype = ctypes.c_int
+            _LIB = lib
+        return _LIB
+
+
+def _cptr(arr):
+    return arr.ctypes.data_as(_DP)
+
+
+def _native(name, *args):
+    status = getattr(_native_lib(), name)(*args)
+    if status != 0:
+        raise RuntimeError(f"{name} returned status {status}")
 
 
 def rebin(old_bins: np.ndarray, old_vals: np.ndarray, new_bins: np.ndarray) -> np.ndarray:
@@ -25,18 +72,40 @@ def rebin(old_bins: np.ndarray, old_vals: np.ndarray, new_bins: np.ndarray) -> n
     old_bins = np.ascontiguousarray(old_bins, dtype=np.float64)
     old_vals = np.ascontiguousarray(old_vals, dtype=np.float64)
     new_bins = np.ascontiguousarray(new_bins, dtype=np.float64)
-    if old_bins.ndim != 1 or new_bins.ndim != 1:
-        raise ValueError("bins must be 1-D")
+    if old_bins.ndim != 1 or new_bins.ndim != 1 or old_vals.ndim != 1:
+        raise ValueError("bins and values must be 1-D")
+    if len(old_bins) < 2 or len(new_bins) < 2:
+        raise ValueError("each grid needs at least one bin")
     if old_vals.shape[-1] != old_bins.shape[0] - 1:
         raise ValueError("old_vals must have len(old_bins)-1 values")
     if np.any(np.diff(old_bins) <= 0) or np.any(np.diff(new_bins) <= 0):
         raise ValueError("bin edges must be strictly increasing")
 
-    widths = old_bins[1:] - old_bins[:-1]
-    F = np.concatenate([np.zeros(old_vals.shape[:-1] + (1,)),
-                        np.cumsum(old_vals * widths, axis=-1)], axis=-1)
-    Fe = np.interp(np.clip(new_bins, old_bins[0], old_bins[-1]), old_bins, F)
-    return np.diff(Fe) / np.diff(new_bins)
+    out = np.empty(len(new_bins) - 1)
+    _native("clima_rebin", len(old_vals), _cptr(old_bins), _cptr(old_vals),
+            len(new_bins) - 1, _cptr(new_bins), _cptr(out))
+    return out
+
+
+def rebin_with_errors(old_bins, old_vals, old_errs, new_bins):
+    """Conservative rebin propagating independent-bin errors in quadrature.
+
+    Mirrors ``clima/cython/futils.pyx:55-99``. Returns (new_vals, new_errs).
+    """
+    old_bins = np.asarray(old_bins, dtype=np.float64)
+    old_errs = np.asarray(old_errs, dtype=np.float64)
+    new_vals = rebin(old_bins, old_vals, new_bins)
+    new_bins = np.asarray(new_bins, dtype=np.float64)
+    # variance integrates as (overlap/width)**2 * err**2
+    n_new = len(new_bins) - 1
+    new_errs = np.zeros(n_new)
+    for j in range(n_new):
+        lo, hi = new_bins[j], new_bins[j + 1]
+        over_lo = np.maximum(old_bins[:-1], lo)
+        over_hi = np.minimum(old_bins[1:], hi)
+        overlap = np.clip(over_hi - over_lo, 0.0, None)
+        new_errs[j] = np.sqrt(np.sum((overlap / (hi - lo)) ** 2 * old_errs**2))
+    return new_vals, new_errs
 
 
 def addpnt(x: np.ndarray, y: np.ndarray, xnew: float, ynew: float):
@@ -57,25 +126,18 @@ def inter2(xg: np.ndarray, x: np.ndarray, y: np.ndarray) -> np.ndarray:
     xg = np.ascontiguousarray(xg, dtype=np.float64)
     x = np.ascontiguousarray(x, dtype=np.float64)
     y = np.ascontiguousarray(y, dtype=np.float64)
+    if xg.ndim != 1 or x.ndim != 1 or y.shape != x.shape:
+        raise ValueError("inter2: xg and x must be 1-D, y the shape of x")
+    if len(xg) < 2 or len(x) < 2:
+        raise ValueError("inter2: each grid needs at least two points")
+    if np.any(np.diff(xg) <= 0):
+        raise ValueError("inter2: bin edges must be strictly increasing")
     if x[0] > xg[0] or x[-1] < xg[-1]:
         raise ValueError("inter2: data grid does not cover target bins")
 
-    # cumulative integral of the piecewise-linear function at points x
-    seg = 0.5 * (y[1:] + y[:-1]) * np.diff(x)
-    F = np.concatenate([[0.0], np.cumsum(seg)])
-
-    def cumint(pts):
-        idx = np.clip(np.searchsorted(x, pts, side="right") - 1, 0, len(x) - 2)
-        x0 = x[idx]
-        x1 = x[idx + 1]
-        y0 = y[idx]
-        y1 = y[idx + 1]
-        t = np.where(x1 > x0, (pts - x0) / np.where(x1 == x0, 1.0, x1 - x0), 0.0)
-        yq = y0 + t * (y1 - y0)
-        return F[idx] + 0.5 * (y0 + yq) * (pts - x0)
-
-    Fe = cumint(xg)
-    return np.diff(Fe) / np.diff(xg)
+    out = np.empty(len(xg) - 1)
+    _native("clima_inter2", len(xg) - 1, _cptr(xg), _cptr(out), len(x), _cptr(x), _cptr(y))
+    return out
 
 
 def interp_discrete_to_bins(bin_edges, xp, yp, extrapolation="Constant", fill_value=None):

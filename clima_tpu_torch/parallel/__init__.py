@@ -1,3 +1,21 @@
 from .pipeline import make_column_fns, batched_toa_fluxes, batched_surface_temperature
+from .solvers import (
+    newton_solve,
+    batched_make_column,
+    batched_make_profile_bg_gas,
+    batched_surface_temperature_trop,
+    batched_surface_temperature_column,
+    batched_surface_temperature_bg_gas,
+)
 
-__all__ = ["make_column_fns", "batched_toa_fluxes", "batched_surface_temperature"]
+__all__ = [
+    "make_column_fns",
+    "batched_toa_fluxes",
+    "batched_surface_temperature",
+    "newton_solve",
+    "batched_make_column",
+    "batched_make_profile_bg_gas",
+    "batched_surface_temperature_trop",
+    "batched_surface_temperature_column",
+    "batched_surface_temperature_bg_gas",
+]

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain twins on the card (float64,
 RORR and the weighted kernels also in float32, RORR on ties; small shapes),
-the nbin > 16 RORR routing, AdiabatClimate on the card and the RCE path's
-pieces (the batched IR call, the RC march's cached CUDA graph). Skipped where no
+the nbin > 16 RORR routing, AdiabatClimate on the card, the RCE path's
+pieces (the batched IR call, the RC march's cached CUDA graph) and the five
+batched column solves against the port on the CPU. Skipped where no
 CUDA device is present; on a GPU machine:
 ``python -m pytest --noconftest tests/test_torch_cuda.py -m cuda`` (the
 suite's conftest configures JAX, which a GPU machine need not have)."""
@@ -17,6 +18,10 @@ from clima_tpu_torch.adiabat import AdiabatClimate, profile_rc, rce
 from clima_tpu_torch.data import make_template
 from clima_tpu_torch.ops import rorr, rorr_cuda, twostream, twostream_cuda
 from clima_tpu_torch.ops.cuda_graph import CAPTURES
+from clima_tpu_torch.parallel import (batched_make_column, batched_make_profile_bg_gas,
+                                      batched_surface_temperature_bg_gas,
+                                      batched_surface_temperature_column,
+                                      batched_surface_temperature_trop)
 from clima_tpu_torch.physics import eqns
 from clima_tpu_torch.radtran import opacity, radiate
 from clima_tpu_torch.radtran.opacity import _rorr_mix
@@ -370,3 +375,61 @@ def test_rc_graph_captured_once_per_shape(dev):
                 np.testing.assert_allclose(getattr(c, k), getattr(cpu, k), rtol=1e-10, err_msg=k)
     assert CAPTURES.get("_rc_interval", 0) == n + 1
     assert len(c._rc_graphs) == 1
+
+
+@pytest.fixture(scope="module")
+def solver_models():
+    """The nz=8, 2-zenith model at substeps=2 on the card and on the CPU, B=2
+    columns (H2O 270 bar, CO2 300 and 600, N2 1 bar)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    tpl = make_template(nz=8, n_zenith=2)
+    files = (tpl["species"], tpl["settings"], tpl["star"], tpl["datadir"])
+    gpu, cpu = AdiabatClimate(*files, substeps=2), AdiabatClimate(*files, substeps=2, device="cpu")
+    P_i = np.full((2, cpu.sp.ng), 1e-15)
+    P_i[:, cpu.species_names.index("H2O")] = 270e6
+    P_i[:, cpu.species_names.index("CO2")] = [300.0, 600.0]
+    P_i[:, cpu.species_names.index("N2")] = 1e6
+    return gpu, cpu, P_i
+
+
+def _inventories(c, P_i, T_surf, factors):
+    c.make_profile(T_surf, P_i[0])
+    return np.outer(factors, c.N_atmos + c.N_surface)
+
+
+SOLVES = {
+    "make_column": (lambda c, cpu, P: batched_make_column(
+        c, [280.0, 280.0], _inventories(cpu, P, 280.0, [1.0, 1.1])), ["P_i_surf"]),
+    "make_profile_bg_gas": (lambda c, cpu, P: batched_make_profile_bg_gas(
+        c, [280.0, 280.0], P, [1e6, 2e6], "N2"), ["P_i_surf"]),
+    "surface_temperature_trop": (lambda c, cpu, P: batched_surface_temperature_trop(
+        c, P, T_guess=260.0), ["T_surf", "T_trop"]),
+    "surface_temperature_column": (lambda c, cpu, P: batched_surface_temperature_column(
+        c, _inventories(cpu, P, 259.0, [1.0, 1.05]), T_guess=259.0), ["T_surf", "P_i_surf"]),
+    "surface_temperature_bg_gas": (lambda c, cpu, P: batched_surface_temperature_bg_gas(
+        c, P, [1e6, 2e6], "N2", T_guess=260.0), ["T_surf", "P_i_surf"]),
+}
+KERNEL_WRAPPERS = (rorr_cuda.k_rorr_mix_cuda, twostream_cuda.two_stream_ir_weighted_cuda,
+                   twostream_cuda.two_stream_solar_multi_weighted_cuda)
+
+
+@pytest.mark.parametrize("name", list(SOLVES))
+def test_batched_solve_on_the_card_matches_the_cpu(solver_models, name):
+    """Each batched solve on the card (graph-replayed march; the surface
+    temperature solves through RORR, #1 and #2, each of which must launch)
+    against the same call by the port on the CPU: results at rtol 1e-8,
+    converged and status equal."""
+    gpu, cpu, P_i = solver_models
+    solve, keys = SOLVES[name]
+    before = [w.launches for w in KERNEL_WRAPPERS]
+    got = solve(gpu, cpu, P_i)
+    launched = [w.launches - n for w, n in zip(KERNEL_WRAPPERS, before)]
+    want = solve(cpu, cpu, P_i)
+    assert got["converged"].device.type == "cuda" and bool(got["converged"].all())
+    for k in keys:
+        np.testing.assert_allclose(got[k].cpu().numpy(), want[k].numpy(), rtol=1e-8, err_msg=k)
+    for k in ("converged", "status"):
+        assert torch.equal(got[k].cpu(), want[k]), k
+    if name.startswith("surface_temperature"):
+        assert min(launched) >= 1, launched

@@ -40,6 +40,9 @@ MODULES = [
     "clima_tpu_torch.adiabat.rce",
     "clima_tpu_torch.parallel",
     "clima_tpu_torch.parallel.pipeline",
+    "clima_tpu_torch.parallel.solvers",
+    "clima_tpu_torch.physics.water",
+    "clima_tpu_torch.utils.shared_library",
     "clima_tpu_torch.tools.compare_twostream_builds",
     "chip_smoke",
 ]
@@ -76,3 +79,19 @@ def test_rce_surface_matches_reference():
         assert getattr(clima_tpu_torch, name) == getattr(clima_tpu, name)
     for name in ("make_profile_rc", "RCE", "_set_convecting_zones", "_update_convecting_zones"):
         assert callable(getattr(AdiabatClimate, name))
+
+
+def test_solver_and_rebin_exports_match_reference():
+    """clima_tpu_torch.parallel exports the JAX package's batched solvers and
+    clima_tpu_torch exports rebin_with_errors, as clima_tpu does."""
+    import clima_tpu.parallel
+    import clima_tpu_torch
+    import clima_tpu_torch.parallel
+
+    for name in ("newton_solve", "batched_make_column", "batched_make_profile_bg_gas",
+                 "batched_surface_temperature_trop", "batched_surface_temperature_column",
+                 "batched_surface_temperature_bg_gas"):
+        assert name in clima_tpu.parallel.__all__ and name in clima_tpu_torch.parallel.__all__
+        assert callable(getattr(clima_tpu_torch.parallel, name))
+    assert "rebin_with_errors" in clima_tpu.__all__ and "rebin_with_errors" in clima_tpu_torch.__all__
+    assert callable(clima_tpu_torch.rebin_with_errors)
