@@ -93,13 +93,33 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    below 2 tol). Reports the solve's seconds, its ``column_model`` calls
    with their column counts and seconds, the graph captures and their
    seconds, peak memory, and the three kernels' times back to back and
-   bounds at the line search's shape (the largest call).
+   bounds at the line search's shape (the largest call);
+8. the device RCE path: ``rce_device.batched_rce`` on phase 6's model over
+   B=4 lanes (H2O 270 bar, N2 1 bar, CO2 200, 400, 800 and 1600 dyn/cm^2,
+   scripts/rce_bench.py's geometric spread cut to four lanes), each
+   warm-started from phase 6's ``surface_temperature`` solution: the batched
+   RC march (its graph captured once per batch size), every objective one
+   RORR + #1 + #2 call over all lanes, every FD Jacobian one batched #1 call
+   over all lanes' perturbations, the Newton/PTC stages and mask updates as
+   array operations over the lanes. Every lane must converge (status 0,
+   max|F/F0| < xtol_rc) and each of the three kernels launch; lane 1 (phase
+   6's column) must have phase 6's host mask, T_surf within 0.5 K and T
+   within 2 K (tests/test_rce_device.py's limits); each kernel is held
+   against its twin on the last inputs the path gave it at each of its
+   shapes (as phase 7); a CPU process of the port evaluates the objective
+   at the card's final state (T, P, z, lapse rates rtol 1e-9, ``f_total``
+   at rtol 1e-9 of the flux scale, its max|F/F0| below xtol_rc). Reports
+   each lane's status and iterations, the objective evaluations and
+   Jacobians, the time split (march, altitude, radiative transfer, the
+   Jacobian's IR batches, the host rest), the marches by batch size, the
+   graph captures, peak memory, and each kernel's time and bound at the
+   path's largest shape.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; the kernels of a path must each have launched. The
 second-to-last line is a JSON object with each kernel's numbers (its
-launches summed over the radtran, adiabat, RCE and solver paths); the last
-line is the device JSON.
+launches summed over the radtran, adiabat, RCE, solver and device RCE
+paths); the last line is the device JSON.
 """
 
 import collections
@@ -122,7 +142,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from clima_tpu_torch.adiabat import AdiabatClimate, rce  # noqa: E402
+from clima_tpu_torch.adiabat import AdiabatClimate, rce, rce_device  # noqa: E402
 from clima_tpu_torch.adiabat import profile as adiabat_profile  # noqa: E402
 from clima_tpu_torch.config import species_from_dict  # noqa: E402
 from clima_tpu_torch.data import make_template  # noqa: E402
@@ -718,6 +738,60 @@ def twin_path():
         yield
 
 
+TWINS = {"two_stream_ir_weighted": (twostream.two_stream_ir_weighted, ("fup", "fdn")),
+         "two_stream_solar_multi_weighted": (twostream.two_stream_solar_multi_weighted,
+                                             ("amean", "fup", "fdn")),
+         "k_rorr_mix": (_rorr_twin, ("tau",))}
+
+
+def recorder(last, name, wrapper):
+    """``wrapper`` that keeps its last inputs at each shape in ``last`` under
+    (name, rows or lanes)."""
+    def run(tau, *args, **kwargs):
+        n = tau.shape[-1] if name == "k_rorr_mix" else tau.shape[0]
+        last[(name, n)] = (wrapper, (tau, *args), kwargs)
+        return wrapper(tau, *args, **kwargs)
+    return run
+
+
+def check_against_twins(last, launches, path):
+    """Each kernel against its twin on the inputs recorded in ``last`` (by
+    :func:`recorder`), every output at RTOL with ATOL capped at 1e-10 of its
+    largest value (the IR outputs are ~1e-8 in the model's units, where ATOL
+    alone would pass a 1e-4 relative error); fails unless the kernel side
+    launched each of the three kernels again."""
+    for (name, n), (wrapper, args, kwargs) in sorted(last.items()):
+        twin, outputs = TWINS[name]
+        got, want = wrapper(*args, **kwargs), twin(*args, **kwargs)
+        if torch.is_tensor(got):
+            got, want = [got], [want]
+        for output, g, w in zip(outputs, got, want):
+            if w is None:
+                continue
+            scale = float(w.abs().max())
+            print(f"  {name} {output} at {n} rows/lanes: largest value {scale:.3e}")
+            compare(f"{name} {output} at {n} rows/lanes of {path} (kernel vs twin)",
+                    [g], [w], atol=min(ATOL, 1e-10 * scale))
+        del got, want
+    checked = _launches(RADTRAN_KERNELS)
+    if any(checked[k] == launches[k] for k in RADTRAN_KERNELS):
+        raise AssertionError(f"the kernel side of the twin comparisons did not launch every "
+                             f"kernel: {launches} -> {checked}")
+
+
+@contextlib.contextmanager
+def recording(last):
+    """The radtran path's three kernel wrappers, each through :func:`recorder`."""
+    with mock.patch.object(opacity, "k_rorr_mix_cuda",
+                           recorder(last, "k_rorr_mix", rorr_cuda.k_rorr_mix_cuda)), \
+            mock.patch.object(radiate, "two_stream_ir_weighted_cuda", recorder(
+                last, "two_stream_ir_weighted", twostream_cuda.two_stream_ir_weighted_cuda)), \
+            mock.patch.object(radiate, "two_stream_solar_multi_weighted_cuda", recorder(
+                last, "two_stream_solar_multi_weighted",
+                twostream_cuda.two_stream_solar_multi_weighted_cuda)):
+        yield
+
+
 def _reset(names):
     for name in names:
         KERNELS[name]["wrapper"].launches = 0
@@ -1139,6 +1213,7 @@ def _rce_on_card(device, smi, conn):
     assert c.device.type == "cuda"
     t0 = time.perf_counter()
     T_warm = c.surface_temperature(P_i, T_guess=280.0)
+    T_guess = c.T.copy()
     print(f"  warm start: surface_temperature {T_warm:.10f} K in {time.perf_counter() - t0:.2f} s")
 
     # instrumentation: counts and host-clock seconds of the path's parts
@@ -1201,6 +1276,9 @@ def _rce_on_card(device, smi, conn):
         converged = c.RCE(P_i, T_warm, c.T.copy())
     sync(device)
     rce_s = time.perf_counter() - t0
+    # the warm start and the solution, for phase 8
+    solved = dict(model=c, P_i=P_i, T_warm=T_warm, T_guess=T_guess,
+                  mask=c.convecting_with_below.copy(), T_surf=c.T_surf, T=c.T.copy())
     launches = _launches(RADTRAN_KERNELS)
     peak = torch.cuda.max_memory_allocated(device)
     captured = {k: v - captures0.get(k, 0) for k, v in CAPTURES.items()
@@ -1264,7 +1342,7 @@ def _rce_on_card(device, smi, conn):
             atol=0.0)
     compare_fluxes("RCE objective (card vs CPU port)", _fluxes(c), fluxes)
     print(f"  phase 6: {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return launches, solved
 
 
 def _cpu_column_at(conn):
@@ -1347,25 +1425,12 @@ def _solver_on_card(device, smi, conn):
             return m
         return dict(out, column_model=run)
 
-    def evented(name, wrapper):
-        def run(tau, *args, **kwargs):
-            n = tau.shape[-1] if name == "k_rorr_mix" else tau.shape[0]
-            last[(name, n)] = (wrapper, (tau, *args), kwargs)
-            return wrapper(tau, *args, **kwargs)
-        return run
-
     captures0, capture_s0 = dict(CAPTURES), dict(CAPTURE_SECONDS)
     torch.cuda.reset_peak_memory_stats(device)
     _reset(RADTRAN_KERNELS)
     t0 = time.perf_counter()
     with mock.patch.object(solvers, "make_column_fns", counted_fns), \
-            mock.patch.object(opacity, "k_rorr_mix_cuda",
-                              evented("k_rorr_mix", rorr_cuda.k_rorr_mix_cuda)), \
-            mock.patch.object(radiate, "two_stream_ir_weighted_cuda", evented(
-                "two_stream_ir_weighted", twostream_cuda.two_stream_ir_weighted_cuda)), \
-            mock.patch.object(radiate, "two_stream_solar_multi_weighted_cuda", evented(
-                "two_stream_solar_multi_weighted",
-                twostream_cuda.two_stream_solar_multi_weighted_cuda)):
+            recording(last):
         out = solvers.batched_surface_temperature_column(c, N_target, T_guess=280.0, tol=tol)
     sync(device)
     solve_s = time.perf_counter() - t0
@@ -1395,30 +1460,8 @@ def _solver_on_card(device, smi, conn):
 
     # each kernel against its twin on the last inputs the solve gave it at
     # each of its shapes (the solution's, the Jacobian's, the line search's
-    # and the floor's column counts). The IR outputs are ~1e-8 in the
-    # model's units, where ATOL alone would pass a 1e-4 relative error, so
-    # each output's atol is also capped at 1e-10 of its largest value
-    twins = {"two_stream_ir_weighted": (twostream.two_stream_ir_weighted, ("fup", "fdn")),
-             "two_stream_solar_multi_weighted": (twostream.two_stream_solar_multi_weighted,
-                                                 ("amean", "fup", "fdn")),
-             "k_rorr_mix": (_rorr_twin, ("tau",))}
-    for (name, n), (wrapper, args, kwargs) in sorted(last.items()):
-        twin, outputs = twins[name]
-        got, want = wrapper(*args, **kwargs), twin(*args, **kwargs)
-        if torch.is_tensor(got):
-            got, want = [got], [want]
-        for output, g, w in zip(outputs, got, want):
-            if w is None:
-                continue
-            scale = float(w.abs().max())
-            print(f"  {name} {output} at {n} rows/lanes: largest value {scale:.3e}")
-            compare(f"{name} {output} at {n} rows/lanes of the solver path (kernel vs twin)",
-                    [g], [w], atol=min(ATOL, 1e-10 * scale))
-        del got, want
-    checked = _launches(RADTRAN_KERNELS)
-    if any(checked[k] == launches[k] for k in RADTRAN_KERNELS):
-        raise AssertionError(f"the kernel side of the twin comparisons did not launch every "
-                             f"kernel: {launches} -> {checked}")
+    # and the floor's column counts)
+    check_against_twins(last, launches, "the solver path")
 
     # the three kernels at the line search's shape (the largest call)
     n_cols = max(n for n, _ in calls)
@@ -1460,14 +1503,203 @@ def _solver_on_card(device, smi, conn):
     return launches
 
 
+DEVICE_RCE_CO2 = (200.0, 400.0, 800.0, 1600.0)  # scripts/rce_bench.py:101's spread, 4 lanes
+
+
+def _device_rce_lanes(c, P_i):
+    P_i_b = np.repeat(P_i[None], len(DEVICE_RCE_CO2), axis=0)
+    P_i_b[:, c.species_names.index("CO2")] = DEVICE_RCE_CO2
+    return P_i_b
+
+
+def _cpu_device_rce_rebuild(conn):
+    """Child process: the port on the CPU. Receives the card's final
+    device-RCE state (x (B, nz+1), masks (B, nz), P_i (B, ng)), evaluates the
+    device RCE objective there and sends (state, max|F/F0| per lane,
+    seconds, error)."""
+    try:
+        torch.set_num_threads(2)
+        c, _ = _rce_model("cpu")
+        x, mask, P_i = (torch.tensor(a) for a in conn.recv())
+        t0 = time.perf_counter()
+        xm, dFdt, _, aux = rce_device.build_rce_fns(c)["objective"](x, mask, P_i)
+        char = max(abs(c.rad.bolometric_flux() / 4.0 + c.surface_heat_flow * 1.0e-3), 1.0e-6)
+        ratio = dFdt.abs().amax(dim=1) * 1.0e-3 / char
+        state = dict(T=xm[:, 1:], P=aux["P_c"], z=aux["z"], lr_actual=aux["lr_actual"],
+                     lr_intended=aux["lr_intended"], f_total=aux["f_total"])
+        conn.send(({k: v.numpy() for k, v in state.items()}, ratio.numpy(),
+                   time.perf_counter() - t0, None))
+    except EOFError:  # the card's side ended before sending its state
+        pass
+    except Exception as e:  # reported to the parent, which raises
+        conn.send((None, None, None, repr(e)))
+    finally:
+        conn.close()
+
+
+def phase_device_rce_path(device, smi, rce_state):
+    print(f"== phase 8: the device RCE path (rce_device.batched_rce: B={len(DEVICE_RCE_CO2)} "
+          f"lanes, CO2 {DEVICE_RCE_CO2} dyn/cm^2, nz={RCE_NZ}, substeps={RCE_SUBSTEPS}, "
+          f"{N_ZEN} zenith angles, float64)")
+    ctx = multiprocessing.get_context("spawn")
+    conn, child_conn = ctx.Pipe()
+    child = ctx.Process(target=_cpu_device_rce_rebuild, args=(child_conn,))
+    child.start()
+    child_conn.close()
+    try:
+        return _device_rce_on_card(device, smi, conn, rce_state)
+    finally:
+        conn.close()
+        child.join(timeout=600)
+        if child.is_alive():
+            child.terminate()
+            child.join()
+            raise AssertionError("the CPU rebuild of the device RCE did not finish in 600 s")
+
+
+def _device_rce_on_card(device, smi, conn, st):
+    t_phase = time.perf_counter()
+    c, P_i = st["model"], st["P_i"]
+    P_i_b = _device_rce_lanes(c, P_i)
+    B = P_i_b.shape[0]
+
+    # instrumentation: host-clock seconds of the path's parts (each closed
+    # by a device sync), the march's batch sizes, and each kernel's last
+    # inputs at each of its shapes
+    secs, counts, marches, last = (collections.Counter(), collections.Counter(),
+                                   collections.Counter(), {})
+
+    def timed(name, fn, count=None):
+        def run(*args, **kwargs):
+            if count is not None:
+                count(*args)
+            sync(device)
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            sync(device)
+            secs[name] += time.perf_counter() - t
+            return out
+        return run
+
+    radiate_ir = rce_device.radiate_ir
+
+    def ir(*args, **kwargs):
+        # the Jacobian's IR batch has B (n+1) columns, an objective's B or 2B
+        T_surface = args[-2]
+        name = "Jacobian IR batch" if T_surface.shape[0] > 2 * B else "radiative transfer"
+        counts[name] += 1
+        return timed(name, radiate_ir)(*args, **kwargs)
+
+    captures0 = dict(CAPTURES)
+    torch.cuda.reset_peak_memory_stats(device)
+    _reset(RADTRAN_KERNELS)
+    t0 = time.perf_counter()
+    with mock.patch.object(rce_device, "make_profile_rc_core", timed(
+                "march", rce_device.make_profile_rc_core,
+                lambda *a: marches.update([a[2].shape[0]]))), \
+            mock.patch.object(rce_device, "compute_altitude_core",
+                              timed("altitude", rce_device.compute_altitude_core)), \
+            mock.patch.object(rce_device, "compute_opacity", timed(
+                "radiative transfer", rce_device.compute_opacity,
+                lambda *a: counts.update(["objective evaluations"]))), \
+            mock.patch.object(rce_device, "radiate_ir", ir), \
+            mock.patch.object(rce_device, "radiate_solar",
+                              timed("radiative transfer", rce_device.radiate_solar)), \
+            recording(last):
+        out = rce_device.batched_rce(c, P_i_b, np.full(B, st["T_warm"]),
+                                     np.repeat(st["T_guess"][None], B, axis=0))
+    sync(device)
+    total_s = time.perf_counter() - t0
+    launches = _launches(RADTRAN_KERNELS)
+    peak = torch.cuda.max_memory_allocated(device)
+    captured = {k: v - captures0.get(k, 0) for k, v in CAPTURES.items()
+                if v != captures0.get(k, 0)}
+    host_s = total_s - sum(secs.values())
+    h = {k: out[k].cpu().numpy() for k in ("T_surf", "T", "convecting_with_below", "converged",
+                                            "status", "rc_iters", "solve_iters", "max_ratio",
+                                            "ratio_floor")}
+    for b in range(B):
+        print(f"  lane {b} (CO2 {DEVICE_RCE_CO2[b]}): status {h['status'][b]}, outer iterations "
+              f"{h['rc_iters'][b]}, solve iterations {h['solve_iters'][b]}, T_surf "
+              f"{h['T_surf'][b]:.10f} K, max|F/F0| {h['max_ratio'][b]:.3e}, ratio_floor "
+              f"{h['ratio_floor'][b]:.3e}, mask "
+              f"{''.join(str(int(v)) for v in h['convecting_with_below'][b])}")
+    print(f"  batched_rce {total_s:.2f} s ({smi}): "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items()) + f", host rest {host_s:.2f} s")
+    print(f"  {counts['objective evaluations']} objective evaluations, "
+          f"{counts['Jacobian IR batch']} Jacobian IR batches; marches by batch size "
+          f"{dict(marches)}; graph captures {captured}; peak device memory "
+          f"{peak / 2**30:.3f} GiB")
+    print(f"  kernel launches on the device RCE path: {launches}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the device RCE path never launched: {launches}")
+    if not ((h["status"] == 0).all() and (h["max_ratio"] < c.xtol_rc).all()):
+        raise AssertionError(f"a lane of the device RCE did not converge: {h['status']}")
+
+    # the CPU port rebuilds the final state while the card goes on
+    x = torch.cat([out["T_surf"][:, None], out["T"]], dim=1)
+    conn.send((x.cpu().numpy(), h["convecting_with_below"], P_i_b))
+
+    # lane 1 is phase 6's column: against its host RCE
+    dT_surf = h["T_surf"][1] - st["T_surf"]
+    dT = np.abs(h["T"][1] - st["T"]).max()
+    print(f"  lane 1 against phase 6's host RCE: T_surf gap {dT_surf:.3e} K, max |dT| "
+          f"{dT:.3e} K, masks equal {bool((h['convecting_with_below'][1] == st['mask']).all())}")
+    if not (h["convecting_with_below"][1] == st["mask"]).all():
+        raise AssertionError("lane 1's mask differs from the host RCE's")
+    if not (abs(dT_surf) < 0.5 and dT < 2.0):
+        raise AssertionError("lane 1 is outside the host RCE's limits (0.5 K, 2 K)")
+
+    # each kernel against its twin on the last inputs the path gave it at
+    # each of its shapes (the B-lane objective, the 2B-lane probe, the
+    # Jacobian batch)
+    check_against_twins(last, launches, "the device RCE path")
+
+    # each kernel at the path's largest shape, back to back
+    nG, nw_ir, nw_sol, nw = c.rad.op.kset.nbin, c.rad.ir.nw, c.rad.sol.nw, c.rad.op.nw
+    per_column = {"two_stream_ir_weighted": nw_ir * nG,
+                  "two_stream_solar_multi_weighted": nw_sol * nG, "k_rorr_mix": nw * c.nz_r}
+    for name, k in per_column.items():
+        n = max(m for kernel, m in last if kernel == name)
+        wrapper, args, kwargs = last[(name, n)]
+        kernel_ms = event_ms(lambda: wrapper(*args, **kwargs), device, reps=20)
+        cols = n // k
+        bound = path_bounds(c, cols, cols)[name]
+        print(f"  {name} at {n} rows/lanes ({cols} columns): {kernel_ms:.4f} ms a call back to "
+              f"back (20 calls, CUDA events), bound {bound:.4f} ms")
+
+    # the card's objective at the final state against the CPU port's
+    xm, _, _, aux = rce_device.build_rce_fns(c)["objective"](
+        x, out["convecting_with_below"], c._tensor(P_i_b))
+    card = dict(T=xm[:, 1:], P=aux["P_c"], z=aux["z"], lr_actual=aux["lr_actual"],
+                lr_intended=aux["lr_intended"])
+    state, ratio_cpu, cpu_s, err = conn.recv()
+    if err is not None:
+        raise AssertionError(f"the CPU rebuild of the device RCE failed: {err}")
+    print(f"  CPU port at the card's final state: {cpu_s:.2f} s; max|F/F0| {ratio_cpu}")
+    compare("device RCE final T, P, z, lapse rates (card vs CPU port)",
+            [v.cpu() for v in card.values()], [torch.tensor(state[k]) for k in card],
+            atol=0.0)
+    compare_fluxes("device RCE f_total (card vs CPU port)", dict(f_total=aux["f_total"]),
+                   dict(f_total=state["f_total"]))
+    if not (ratio_cpu < c.xtol_rc).all():
+        raise AssertionError(f"the CPU port's max|F/F0| at the card's state is not below "
+                             f"xtol_rc: {ratio_cpu}")
+    print(f"  phase 8: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main():
     t0 = time.perf_counter()
     device, smi = phase_environment()
     phase_build()
     phase_kernels(device)
     launches = phase_dispatchers(device)
-    for path in (phase_radtran_path(device), phase_adiabat_path(device, smi),
-                 phase_rce_path(device, smi), phase_solver_path(device, smi)):
+    paths = [phase_radtran_path(device), phase_adiabat_path(device, smi)]
+    rce_launches, rce_state = phase_rce_path(device, smi)
+    paths += [rce_launches, phase_solver_path(device, smi),
+              phase_device_rce_path(device, smi, rce_state)]
+    for path in paths:
         for name, n in path.items():
             launches[name] = launches.get(name, 0) + n
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -9,10 +9,11 @@ changing.
 
 The unknowns are the surface + radiative-layer + convective-zone-bottom
 temperatures (``inds_Tx``, solve.f90:868-877). The profile rebuild
-(:func:`.profile_rc.make_profile_rc_core`) and the radiative transfer run on
-the model's device; on the card the RC march replays one interval's CUDA
-graph, captured once per model and shape (``AdiabatClimate._rc_graphs``), so
-a new mask or temperature profile recaptures nothing. The zone bookkeeping,
+(:func:`.profile_rc.make_profile_rc_core`, a batch of one column) and the
+radiative transfer run on the model's device; on the card the RC march
+replays one interval's CUDA graph, captured once per model and shape
+(``AdiabatClimate._rc_graphs``), so a new mask or temperature profile
+recaptures nothing. The zone bookkeeping,
 the finite-difference Jacobian assembly, the mask updates and the HYBRJ/PTC
 solvers are host numpy (O(nz)).
 """
@@ -100,13 +101,12 @@ def make_profile_rc(self, P_i_surf, T_in):
         raise ClimaException("T_in has the wrong dimension")
     _check_temperature_range(self, T_in)
 
-    out = make_profile_rc_core(
+    out = self._host(make_profile_rc_core(
         dataclasses.replace(self._par, P_top=float(self.P_top)), self._tensor(self.RH),
-        self._tensor(T_in[0]), self._tensor(T_in[1:]), self._tensor(P_i_surf),
-        torch.as_tensor(self.convecting_with_below, device=self.device), _custom_mix(self),
-        graphs=self._rc_graphs,
-    )
-    out = {k: v.detach().cpu().numpy() for k, v in out.items()}
+        self._tensor(T_in[:1]), self._tensor(T_in[None, 1:]), self._tensor(P_i_surf[None]),
+        torch.as_tensor(self.convecting_with_below[None], device=self.device),
+        _custom_mix(self), graphs=self._rc_graphs,
+    ))
     if not np.isfinite(out["T"]).all():
         raise ClimaException("make_profile_rc produced non-finite temperatures")
 

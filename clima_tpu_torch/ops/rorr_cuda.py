@@ -170,7 +170,9 @@ def k_rorr_mix_cuda(tau_ks_t, wbin, wbin_e):
     and ``wbin_e`` (nbin+1,) on the same device. Returns (nbin, R).
     """
     if tau_ks_t.device.type == "cpu":
-        return k_rorr_mix(tau_ks_t.movedim(1, -1), wbin_e).movedim(-1, 0)
+        # contiguous lanes: on a strided view the CPU reductions' order, and
+        # so a lane's last bits, would follow the number of lanes
+        return k_rorr_mix(tau_ks_t.movedim(1, -1).contiguous(), wbin_e).movedim(-1, 0)
     if tau_ks_t.device.type != "cuda":
         raise ValueError(f"no RORR kernel for device {tau_ks_t.device}")
     nk, nbin, R = tau_ks_t.shape

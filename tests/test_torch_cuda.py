@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain twins on the card (float64,
 RORR and the weighted kernels also in float32, RORR on ties; small shapes),
 the nbin > 16 RORR routing, AdiabatClimate on the card, the RCE path's
-pieces (the batched IR call, the RC march's cached CUDA graph) and the five
-batched column solves against the port on the CPU. Skipped where no
+pieces (the batched IR call, the RC march's cached CUDA graph, per batch
+size), the five batched column solves and the batched device RCE against the
+port on the CPU. Skipped where no
 CUDA device is present; on a GPU machine:
 ``python -m pytest --noconftest tests/test_torch_cuda.py -m cuda`` (the
 suite's conftest configures JAX, which a GPU machine need not have)."""
@@ -14,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from clima_tpu_torch.adiabat import AdiabatClimate, profile_rc, rce
+from clima_tpu_torch.adiabat import AdiabatClimate, profile_rc, rce, rce_device
 from clima_tpu_torch.data import make_template
 from clima_tpu_torch.ops import rorr, rorr_cuda, twostream, twostream_cuda
 from clima_tpu_torch.ops.cuda_graph import CAPTURES
@@ -336,18 +337,26 @@ def test_ir_fluxes_batch_matches_twin(dev):
         np.testing.assert_allclose(g.cpu().numpy(), w, rtol=1e-9, atol=1e-10 * np.abs(w).max())
 
 
-def _rc_inputs(c, P_i, mask, T_top):
+def _rc_inputs(c, P_i, masks, T_tops):
+    """make_profile_rc_core's arguments for a batch of columns, one per
+    (mask, T_top): T linear from 285 K to T_top."""
     t = c._tensor
-    T_in = np.linspace(285.0, T_top, c.nz + 1)
-    return (dataclasses.replace(c._par, P_top=float(c.P_top)), t(c.RH), t(T_in[0]), t(T_in[1:]),
-            t(P_i), torch.as_tensor(mask, device=c.device), rce._custom_mix(c))
+    T_in = np.array([np.linspace(285.0, T_top, c.nz + 1) for T_top in T_tops])
+    return (dataclasses.replace(c._par, P_top=float(c.P_top)), t(c.RH), t(T_in[:, 0]),
+            t(T_in[:, 1:]), t(np.repeat(P_i[None], len(T_tops), 0)),
+            torch.as_tensor(np.array(masks), device=c.device), rce._custom_mix(c))
+
+
+RC_COLUMNS = [(np.arange(20) < 6, 190.0), (np.zeros(20, bool), 210.0),
+              ((np.arange(20) < 3) | (np.arange(20) >= 15), 200.0), (np.arange(20) < 12, 185.0)]
 
 
 def test_rc_march_graphed_matches_eager(dev):
     """make_profile_rc_core on the card replaying the captured interval
-    against the same march run eagerly on the card, rtol 1e-12."""
+    against the same march run eagerly on the card, rtol 1e-12, over a batch
+    of four columns with their own masks."""
     c, P_i = _rce_model()
-    args = _rc_inputs(c, P_i, np.arange(c.nz) < 6, 190.0)
+    args = _rc_inputs(c, P_i, *zip(*RC_COLUMNS))
     got = profile_rc.make_profile_rc_core(*args, graphs={})
     with mock.patch.object(profile_rc, "graphed", lambda fn, *a: (fn, fn(*a))):
         want = profile_rc.make_profile_rc_core(*args)
@@ -375,6 +384,81 @@ def test_rc_graph_captured_once_per_shape(dev):
                 np.testing.assert_allclose(getattr(c, k), getattr(cpu, k), rtol=1e-10, err_msg=k)
     assert CAPTURES.get("_rc_interval", 0) == n + 1
     assert len(c._rc_graphs) == 1
+
+
+def test_rc_march_batch_matches_single_columns(dev):
+    """The RC march at B=1 and then at B=4, through one graph cache, against
+    B=1 runs of each column (rtol 1e-10): a graph captured at one batch size
+    must not replay on another's buffers, so the cache holds one capture per
+    batch size."""
+    c, P_i = _rce_model()
+    graphs = {}
+    n = CAPTURES.get("_rc_interval", 0)
+    singles = [profile_rc.make_profile_rc_core(*_rc_inputs(c, P_i, [mask], [T_top]),
+                                               graphs=graphs) for mask, T_top in RC_COLUMNS]
+    batch = profile_rc.make_profile_rc_core(*_rc_inputs(c, P_i, *zip(*RC_COLUMNS)),
+                                            graphs=graphs)
+    assert CAPTURES.get("_rc_interval", 0) == n + 2
+    assert sorted(key[0] for key in graphs) == [1, len(RC_COLUMNS)]
+    for b, one in enumerate(singles):
+        for k, w in one.items():
+            np.testing.assert_allclose(batch[k][b].cpu().numpy(), w[0].cpu().numpy(),
+                                       rtol=1e-10, atol=1e-300, err_msg=f"{k} column {b}")
+
+
+def _device_rce_lanes(c):
+    """Two lanes (CO2 400 and 800) warm-started from surface_temperature."""
+    P_i = np.full((2, c.sp.ng), 1e-15)
+    P_i[:, c.species_names.index("H2O")] = 270e6
+    P_i[:, c.species_names.index("CO2")] = [400.0, 800.0]
+    P_i[:, c.species_names.index("N2")] = 1e6
+    T_surf = c.surface_temperature(P_i[0], T_guess=280.0)
+    return P_i, np.full(2, T_surf), np.repeat(c.T[None], 2, 0)
+
+
+def test_device_rce_on_the_card_matches_the_cpu_rebuild(dev):
+    """batched_rce on the card (nz=8, B=2): every lane status 0; at its final
+    state the port's objective on the CPU gives the same profile (rtol 1e-9),
+    f_total (rtol 1e-9 of the flux scale) and max|F/F0| < xtol_rc."""
+    tpl = make_template(nz=8, n_zenith=2, surface_albedo=0.3)
+    files = (tpl["species"], tpl["settings"], tpl["star"], tpl["datadir"])
+    gpu, cpu = AdiabatClimate(*files, substeps=2), AdiabatClimate(*files, substeps=2, device="cpu")
+    P_i, T_surf, T = _device_rce_lanes(gpu)
+    out = rce_device.batched_rce(gpu, P_i, T_surf, T)
+    assert out["T"].device.type == "cuda"
+    assert (out["status"] == 0).all() and (out["max_ratio"] < gpu.xtol_rc).all()
+    x = torch.cat([out["T_surf"][:, None], out["T"]], dim=1).cpu()
+    mask = out["convecting_with_below"].cpu()
+    xm, dFdt, _, aux = rce_device.build_rce_fns(cpu)["objective"](x, mask, cpu._tensor(P_i))
+    np.testing.assert_allclose(out["T"].cpu().numpy(), xm[:, 1:].numpy(), rtol=1e-9)
+    for k, v in (("P", aux["P_c"]), ("z", aux["z"]), ("P_surf", aux["P_surf"])):
+        np.testing.assert_allclose(out[k].cpu().numpy(), v.numpy(), rtol=1e-9, err_msg=k)
+    f_total = aux["f_total"].numpy()
+    np.testing.assert_allclose(out["f_total"].cpu().numpy(), f_total, rtol=1e-9,
+                               atol=1e-9 * np.abs(f_total).max())
+    ratio = np.abs(dFdt.numpy()).max(axis=1) * 1e-3 / (gpu.rad.bolometric_flux() / 4.0)
+    assert (ratio < cpu.xtol_rc).all(), ratio
+
+
+def test_device_rce_objective_launches_the_kernels_not_the_twins(dev):
+    """One objective of the device RCE on the card launches RORR, #1 and #2
+    once each, and no plain twin runs."""
+    c, P_i = _rce_model(nz=8)
+    fns = rce_device.build_rce_fns(c)
+    T_in = np.linspace(285.0, 200.0, c.nz + 1)
+    args = (c._tensor(T_in[None]), torch.as_tensor(np.arange(c.nz)[None] < 3, device=dev),
+            c._tensor(P_i[None]))
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain twin ran on the card")
+
+    before = [w.launches for w in KERNEL_WRAPPERS]
+    with mock.patch.object(rorr_cuda, "k_rorr_mix", refuse), \
+            mock.patch.object(twostream_cuda.ts, "two_stream_ir_weighted", refuse), \
+            mock.patch.object(twostream_cuda.ts, "two_stream_solar_multi_weighted", refuse):
+        _, dFdt, _, _ = fns["objective"](*args)
+    assert [w.launches - n for w, n in zip(KERNEL_WRAPPERS, before)] == [1, 1, 1]
+    assert bool(torch.isfinite(dFdt).all())
 
 
 @pytest.fixture(scope="module")

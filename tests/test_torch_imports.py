@@ -38,6 +38,7 @@ MODULES = [
     "clima_tpu_torch.adiabat.adiabat",
     "clima_tpu_torch.adiabat.profile_rc",
     "clima_tpu_torch.adiabat.rce",
+    "clima_tpu_torch.adiabat.rce_device",
     "clima_tpu_torch.parallel",
     "clima_tpu_torch.parallel.pipeline",
     "clima_tpu_torch.parallel.solvers",
@@ -95,3 +96,19 @@ def test_solver_and_rebin_exports_match_reference():
         assert callable(getattr(clima_tpu_torch.parallel, name))
     assert "rebin_with_errors" in clima_tpu.__all__ and "rebin_with_errors" in clima_tpu_torch.__all__
     assert callable(clima_tpu_torch.rebin_with_errors)
+
+
+def test_rce_device_signatures_match_reference():
+    """clima_tpu_torch.adiabat.rce_device has the JAX package's public names,
+    with the same parameters and defaults."""
+    import inspect
+
+    import clima_tpu.adiabat.rce_device as ref
+    import clima_tpu_torch.adiabat.rce_device as port
+
+    assert port.__all__ == ref.__all__ == ["build_rce_fns", "batched_rce"]
+    for name in port.__all__:
+        got = inspect.signature(getattr(port, name)).parameters
+        want = inspect.signature(getattr(ref, name)).parameters
+        assert [(p.name, p.default, p.kind) for p in got.values()] == \
+            [(p.name, p.default, p.kind) for p in want.values()], name
