@@ -8,8 +8,9 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    fails without a CUDA device (there is no CPU path);
 2. build: the CUDA kernels from clima_tpu_torch/csrc/, one nvcc per source,
    started together, with build seconds and ptxas's registers, stack and
-   spills for each kernel instance; fails if an instance of the RORR kernel
-   or of either weighted two-stream kernel spills;
+   spills for each kernel instance; fails if an instance of the RORR kernel,
+   of either weighted two-stream kernel or of the unreduced multi-zenith
+   solar kernel spills;
 3. each kernel against its plain PyTorch twin on the card, float64:
    a. the weight-fused kernels of the radtran path at the flagship shapes
       (IR two-stream with hard and soft surface and a thin layer, timed, and
@@ -36,11 +37,11 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
       nz = 202, the 4 Gauss zenith cosines shared by all rows, or cycled
       over the rows for the single-zenith kernel; IR with a hard and a soft
       surface and a thin layer), and the multi-zenith kernel again at 12
-      zenith angles (two launches; the (zenith, row) pairs with a layer
+      zenith angles (one launch; the (zenith, row) pairs with a layer
       within 1e-4 of the lam^2 = 1/u0^2 resonance of the solar source, where
       kernel and twin alike amplify roundoff, are counted and must be
-      finite, the others are held to the twin), the twins compared in row
-      chunks;
+      finite, the others are held to the twin), timed at 4 and 12 zenith
+      angles, the twins compared in row chunks;
    kernel and twin times (CUDA events after a warm-up) and each kernel's
    bound: the larger of its bytes over 3.35 TB/s and its float64
    operations over 34 TFLOP/s (NVIDIA H100 SXM data sheet, non-tensor FP64);
@@ -182,7 +183,7 @@ KERNELS = {
         source="clima_tpu_torch/csrc/twostream.cu",
         replaces="clima_tpu/ops/pallas_twostream.py:303"),
     "two_stream_solar_multi": dict(
-        wrapper=twostream_cuda.two_stream_solar_multi_auto, kernel="twostream_kernel",
+        wrapper=twostream_cuda.two_stream_solar_multi_auto, kernel="solar_rows_kernel",
         source="clima_tpu_torch/csrc/twostream.cu",
         replaces="clima_tpu/ops/pallas_twostream.py:107"),
     "two_stream_solar": dict(
@@ -318,7 +319,7 @@ def phase_build():
             elif "registers" in line or "spill" in line:
                 print("     ", line.strip())
                 stores = re.search(r"(\d+) bytes spill stores", line)
-                checked = name == "rorr" or "weighted_kernel" in fn
+                checked = name == "rorr" or "weighted_kernel" in fn or "solar_rows_kernel" in fn
                 if checked and stores and int(stores.group(1)) > 0:
                     spills.append(fn)
     if spills:
@@ -638,19 +639,19 @@ def phase_dispatchers(device, rows=ROOFLINE_ROWS, nz=ROOFLINE_NZ, nzen=N_ZEN, re
     del ir, multi, single
     sync(device)
 
-    # 12 zenith angles: two launches of at most 8, joined along the zenith
-    # axis. 6 of the 12 nodes can meet the lam^2 = 1/u0^2 resonance of the
-    # solar source (a fault of the reference's formulation): (zenith, row)
-    # pairs with a layer within 1e-4 of it, relative, amplify roundoff in
-    # kernel and twin alike; they are counted and must be finite, and all
-    # the others are held to the twin as above
+    # 12 zenith angles in one launch. 6 of the 12 nodes can meet the
+    # lam^2 = 1/u0^2 resonance of the solar source (a fault of the
+    # reference's formulation): (zenith, row) pairs with a layer within 1e-4
+    # of it, relative, amplify roundoff in kernel and twin alike; they are
+    # counted and must be finite, and all the others are held to the twin as
+    # above
     ang12, _ = eqns.zenith_angles_and_weights(12)
     u0s12 = torch.tensor(np.cos(ang12 * np.pi / 180.0), device=device)
     n = twostream_cuda.two_stream_solar_multi_auto.launches
     multi = twostream_cuda.two_stream_solar_multi_auto(tau, w0, gt, u0s12, rs)
     sync(device)
-    if twostream_cuda.two_stream_solar_multi_auto.launches - n != 2:
-        raise AssertionError("12 zenith angles did not take two launches")
+    if twostream_cuda.two_stream_solar_multi_auto.launches - n != 1:
+        raise AssertionError("12 zenith angles did not take one launch")
     twin = _in_chunks(lambda a, b, c, d: twostream.two_stream_solar_multi(a, b, c, u0s12, d),
                       (tau, w0, gt, rs), rows, (1, 1, 1, 1))
     near = resonance_distance(w0, gt, u0s12) < 1e-4
@@ -675,9 +676,10 @@ def phase_dispatchers(device, rows=ROOFLINE_ROWS, nz=ROOFLINE_NZ, nzen=N_ZEN, re
     }
     set_bound("two_stream_ir", F64 * (3 * rows * nz + rows + rows * (nz + 1) + 2 * rows * (nz + 1)),
               rows * nz * twostream_ops(False))
-    set_bound("two_stream_solar_multi",
-              F64 * (3 * rows * nz + rows + nzen + 3 * nzen * rows * (nz + 1) + nzen * rows),
-              rows * nz * twostream_ops(True, nzen, amean=True))
+    # bytes and operations of the multi-zenith solve at n zenith angles
+    multi_work = lambda n: (F64 * (3 * rows * nz + rows + n + 3 * n * rows * (nz + 1) + n * rows),
+                            rows * nz * twostream_ops(True, n, amean=True))
+    set_bound("two_stream_solar_multi", *multi_work(nzen))
     set_bound("two_stream_solar", F64 * (3 * rows * nz + 2 * rows + 3 * rows * (nz + 1) + rows),
               rows * nz * twostream_ops(True, 1, amean=True))
     for name, (kernel, twin) in timed.items():
@@ -687,6 +689,13 @@ def phase_dispatchers(device, rows=ROOFLINE_ROWS, nz=ROOFLINE_NZ, nzen=N_ZEN, re
         torch.cuda.empty_cache()
         print(f"  {name}: kernel {r['ms']:.3f} ms, twin {r['plain_ms']:.3f} ms, "
               f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
+    ms12 = event_ms(lambda: twostream_cuda.two_stream_solar_multi_auto(tau, w0, gt, u0s12, rs),
+                    device, reps)
+    nbytes12, ops12 = multi_work(12)
+    bound12 = max(nbytes12 / HBM_BYTES_PER_S, ops12 / FP64_OPS_PER_S) * 1e3
+    torch.cuda.empty_cache()
+    print(f"  two_stream_solar_multi at 12 zenith angles (one launch): kernel {ms12:.3f} ms, "
+          f"bound {bound12:.3f} ms")
     return launches
 
 

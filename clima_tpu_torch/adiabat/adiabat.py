@@ -245,8 +245,9 @@ class AdiabatClimate:
         self._par = dataclasses.replace(self._par, substeps=value)
 
     def _tensor(self, x):
-        return torch.as_tensor(np.asarray(x, dtype=np.float64), dtype=self.dtype,
-                               device=self.device)
+        """Numbers, sequences, arrays or tensors on any device as a tensor of
+        the model's dtype on its device."""
+        return torch.as_tensor(x, dtype=self.dtype, device=self.device)
 
     @staticmethod
     def _host(out):

@@ -1022,7 +1022,7 @@ def batched_rce(c, P_i_surf_b, T_surf_guess_b, T_guess_b,
         conv0_b = torch.zeros((B, c.nz), dtype=torch.bool, device=c.device)
         use_guess_b = torch.zeros(B, dtype=torch.bool, device=c.device)
     else:
-        conv0_b = torch.as_tensor(np.asarray(convecting_with_below_b, bool), device=c.device)
+        conv0_b = torch.as_tensor(convecting_with_below_b, dtype=torch.bool, device=c.device)
         use_guess_b = torch.ones(B, dtype=torch.bool, device=c.device)
     if chunk_iters is None:
         return fns["rce"](x0_b, conv0_b, use_guess_b, P_i_surf_b)

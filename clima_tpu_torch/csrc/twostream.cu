@@ -1,14 +1,11 @@
 // Toon et al. (1989) two-stream solves for Hopper (sm_90a), float and double:
 // weight-fused (the gauss and zenith sums done in the kernel) and unreduced
-// (every row's edge fluxes written out). Three kernels live here.
+// (every row's edge fluxes written out). Four kernels live here.
 //
 // 1. The row template (twostream_kernel) replaces the JAX package's Pallas
 //    TPU kernels
 //   clima_tpu/ops/pallas_twostream.py::two_stream_ir_pallas (_ir_kernel):
 //     IR per row, unreduced
-//   clima_tpu/ops/pallas_twostream.py::two_stream_solar_multi_pallas
-//     (_solar_multi_kernel): multi-zenith solar per row, unreduced, with the
-//     surface radiance
 //   clima_tpu/ops/pallas_twostream.py::two_stream_solar_pallas
 //     (_solar_kernel): single-zenith solar, one zenith cosine per row
 // 2. The weighted solar kernel (solar_weighted_kernel, designed below the
@@ -16,7 +13,12 @@
 //   clima_tpu/ops/pallas_twostream.py::two_stream_solar_multi_weighted_pallas
 //     (_solar_multi_weighted_kernel): delta-Eddington quadrature solar for
 //     any number of zenith angles, zenith- and gauss-weighted, amean optional
-// 3. The weighted IR kernel (ir_weighted_kernel, designed after it) replaces
+// 3. The unreduced multi-zenith solar kernel (solar_rows_kernel, designed
+//    after it) replaces
+//   clima_tpu/ops/pallas_twostream.py::two_stream_solar_multi_pallas
+//     (_solar_multi_kernel): multi-zenith solar per row, unreduced, with the
+//     surface radiance
+// 4. The weighted IR kernel (ir_weighted_kernel, designed last) replaces
 //   clima_tpu/ops/pallas_twostream.py::two_stream_ir_weighted_pallas
 //     (_ir_weighted_kernel): hemispheric-mean IR, linear-in-tau Planck
 //     source, gauss-weighted
@@ -28,14 +30,17 @@
 // conditioned). Block row k couples u_{k-1}[1] through L01 and u_{k+1}[0]
 // through U10, so the forward sweep only changes M00 and f0, and each block
 // leaves p = inv(M') f' and q = inv(M')[:, 1] * U10 for the back
-// substitution u_k = p_k - q_k * u_{k+1}[0]. The matrix is zenith independent:
-// q is shared and only p is carried per zenith right-hand side (NR of them in
-// registers, so one launch takes at most 8 zenith angles).
+// substitution u_k = p_k - q_k * u_{k+1}[0]. The template carries NR
+// right-hand sides a thread; both of its instances take NR = 1 (its
+// shared-zenith instances gave way to solar_rows_kernel). Written for NR = 1
+// alone, its single-zenith solar instance ran 1.3 ms slower at the roofline
+// shape (PERF.md), so the template stays as it is until #4 and #6 have
+// their own kernels.
 //   pass 1  forward: layer coefficients, elimination, p and q to scratch
 //   pass 2  backward: u_k overwrites p_k in scratch
 //   pass 3  forward: recompute the layer coefficients (bit-identical to
 //           pass 1) and store each row's edge fluxes (and the surface
-//           radiance), per zenith.
+//           radiance).
 // Scratch is laid out (nz, values, rows), rows fastest, so its accesses are
 // coalesced. What bounds it: the per-thread sequential recurrence over nz
 // (latency of dependent double-precision divides and exps) at low occupancy
@@ -636,6 +641,230 @@ int launch_solar_weighted(const void* tau, const void* w0, const void* gt, const
   return int(cudaGetLastError());
 }
 
+// ---- The unreduced multi-zenith solar kernel ----
+//
+// Replaces clima_tpu/ops/pallas_twostream.py::two_stream_solar_multi_pallas
+// (_solar_multi_kernel) and computes what ops/twostream.py's
+// two_stream_solar_multi computes: the solar solve of every row for each
+// zenith cosine of u0s (shared by all rows), written out per (zenith, row):
+// amean, fup and fdn at every edge and the surface radiance.
+//
+// What held the row template back for this solve: one thread per row
+// carrying NR = 4 or 8 zenith right-hand sides in registers (few resident
+// warps; the 8-zenith float64 instance spilled), at most 8 zenith angles a
+// launch; three passes over a (nz, 2 + 2 NR, rows) scratch; the (rows, nz)
+// inputs read twice; and each row's edges stored by its own thread, so a
+// warp's stores lay nz + 1 values apart.
+//
+// Design. The weighted solar kernel's solve, a thread per (row, zenith) pair
+// running the template's 2x2-block Thomas elimination with one right-hand
+// side, without the weighted sums. Pairs are numbered zenith fastest (row *
+// nzen + z) and a block takes kRowsThreads consecutive pairs, so nzen is a
+// run-time value and one launch takes any number of zenith angles; a row's
+// zeniths may straddle two blocks. Zenith fastest (not a warp per zenith):
+// a row's threads sit side by side, so its inputs, q and tauc are read once
+// for all its zeniths, and the block barrier that publishes q needs no block
+// to hold a whole row; source_quot keeps the zenith-dependent underflow off
+// the divisions' slow path, which would otherwise split the warp (plain
+// divisions measured 21% slower at 12 zeniths, PERF.md).
+//   forward: layer coefficients and elimination, top to bottom, the next
+//            layer's inputs read one layer ahead (per-warp cp.async tiles,
+//            as in ir_weighted_kernel, measured slower here: a warp's 32
+//            pairs span few rows at several zeniths). The row's first thread in
+//            the block stores q and the running tauc of each layer (zenith
+//            independent and the same bits in every thread of the row, so a
+//            row split between two blocks has both store the same values),
+//            every thread its p.
+//   backward (after one block barrier, bottom to top, scratch and inputs read
+//            one layer ahead): u_k = p_k - q_k * u_{k+1}[0], the layer's
+//            coefficients recomputed from the stored tauc (bit-identical to
+//            the forward's), its edge fluxes and amean staged in the warp's
+//            shared memory, the surface radiance stored at the bottom layer.
+//            Every 128 bytes' worth of edges (16 float64, 32 float32) the
+//            warp writes them out: each pair's edges form one contiguous run
+//            of a (nzen, rows, nz+1) output, and neighbouring lanes store
+//            neighbouring edges of a run (a warp store covers whole runs).
+// Scratch: q (nz, 2, rows), tauc (nz, rows) and p (nz, 2, rows * nzen), each
+// written once and read once, coalesced in the thread order. What bounds it:
+// the per-thread chain of dependent double-precision divides, sqrt and exps
+// (the zenith-independent part repeated in each of a row's threads, and the
+// coefficients computed twice), with the scratch and the outputs (3 nzen
+// rows (nz + 1) values) streamed beneath it.
+
+constexpr int kRowsThreads = 128;  // pairs per block
+
+// dynamic shared memory: each pair's output base (blockDim) and each warp's
+// staged values (3 outputs, 32 lanes, 128 / sizeof(T) + 1 slots)
+template <typename T>
+constexpr size_t solar_rows_smem() {
+  return kRowsThreads * sizeof(int64_t) + size_t(kRowsThreads) * 3 * (128 / sizeof(T) + 1) * sizeof(T);
+}
+
+// outputs (nzen, rows, nz+1): amean, fup, fdn; out_srad (nzen, rows)
+template <typename T>
+__global__ void solar_rows_kernel(
+    const T* __restrict__ tau, const T* __restrict__ w0, const T* __restrict__ gt,
+    const T* __restrict__ surf, const T* __restrict__ u0s, int nzen, int64_t rows, int nz,
+    T* __restrict__ q_s, T* __restrict__ tauc_s, T* __restrict__ p_s, T* __restrict__ out_am,
+    T* __restrict__ out_fup, T* __restrict__ out_fdn, T* __restrict__ out_srad) {
+  constexpr int E = int(128 / sizeof(T)), SLOTS = E + 1, WVALS = 3 * 32 * SLOTS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int64_t* bases = reinterpret_cast<int64_t*>(smem_raw) + warp * 32;  // this warp's
+  T* vals = reinterpret_cast<T*>(smem_raw + kRowsThreads * sizeof(int64_t)) + warp * WVALS;
+
+  const int64_t np = rows * nzen, pc = int64_t(blockIdx.x) * kRowsThreads + tid;  // pair
+  const bool active = pc < np;
+  const int64_t row = active ? pc / nzen : 0;
+  const int z = active ? int(pc - row * nzen) : 0;
+  const bool first = z == 0 || tid == 0;  // the row's first thread in this block
+  const int64_t ne = nz + 1;
+  bases[lane] = active ? (int64_t(z) * rows + row) * ne : -1;
+  const T u0 = u0s[z];
+  const T u1 = T(1) / T(kSqrt3);
+  const T* tau_r = tau + row * nz;
+  const T* w0_r = w0 + row * nz;
+  const T* gt_r = gt + row * nz;
+
+  // ---- forward: elimination; q and tauc per (layer, row), p per thread ----
+  if (active) {
+    const T Rs = surf[row];
+    Layer<T, 1> cur, nxt;
+    T tauc = T(0);
+    solar_layer_1(tau_r[0], w0_r[0], gt_r[0], tauc, u0, cur);
+    if (first) tauc_s[row] = tauc;
+    T Aev = T(0), Bev = cur.e1, Dev = -cur.e2, Eev = -cur.cm0[0];
+    T p1prev = T(0), q1prev = T(0);
+    T ta = T(0), wa = T(0), ga = T(0);  // the inputs of layer k + 1
+    if (nz > 1) { ta = tau_r[1]; wa = w0_r[1]; ga = gt_r[1]; }
+    for (int k = 0; k < nz; ++k) {
+      T Aod, Bod, Dod, Eod, nAev = T(0), nBev = T(0), nDev = T(0), nEev = T(0);
+      if (k < nz - 1) {
+        const T tk = ta, wk = wa, gk = ga;
+        if (k + 2 < nz) { ta = tau_r[k + 2]; wa = w0_r[k + 2]; ga = gt_r[k + 2]; }
+        tauc += cur.tau;
+        solar_layer_1(tk, wk, gk, tauc, u0, nxt);
+        if (first) tauc_s[int64_t(k + 1) * rows + row] = tauc;
+        Aod = nxt.e2 * cur.e1 - cur.e3 * nxt.e4;
+        Bod = cur.e2 * nxt.e2 - cur.e4 * nxt.e4;
+        Dod = nxt.e1 * nxt.e4 - nxt.e2 * nxt.e3;
+        nAev = cur.e2 * cur.e3 - cur.e4 * cur.e1;
+        nBev = cur.e1 * nxt.e1 - cur.e3 * nxt.e3;
+        nDev = cur.e3 * nxt.e4 - cur.e1 * nxt.e2;
+        Eod = nxt.e2 * (nxt.cp0[0] - cur.cpb[0]) - nxt.e4 * (nxt.cm0[0] - cur.cmb[0]);
+        nEev = cur.e3 * (nxt.cp0[0] - cur.cpb[0]) + cur.e1 * (cur.cmb[0] - nxt.cm0[0]);
+      } else {
+        Aod = cur.e1 - Rs * cur.e3;
+        Bod = cur.e2 - Rs * cur.e4;
+        Dod = T(0);
+        T Ss = Rs * cur.dir_b[0];
+        Eod = Ss - cur.cpb[0] + Rs * cur.cmb[0];
+      }
+      // block k: M = [[Bev, Dev], [Aod, Bod]], L01 = Aev, U10 = Dod
+      T M00 = Bev - Aev * q1prev;
+      T inv_det = T(1) / (M00 * Bod - Dev * Aod);
+      T X00 = Bod * inv_det, X01 = -Dev * inv_det;
+      T X10 = -Aod * inv_det, X11 = M00 * inv_det;
+      q1prev = X11 * Dod;
+      if (first) {
+        q_s[int64_t(2 * k) * rows + row] = X01 * Dod;
+        q_s[int64_t(2 * k + 1) * rows + row] = q1prev;
+      }
+      T f0 = Eev - Aev * p1prev;
+      T p0 = X00 * f0 + X01 * Eod;
+      p1prev = X10 * f0 + X11 * Eod;
+      p_s[int64_t(2 * k) * np + pc] = p0;
+      p_s[int64_t(2 * k + 1) * np + pc] = p1prev;
+      cur = nxt;
+      Aev = nAev; Bev = nBev; Dev = nDev; Eev = nEev;
+    }
+  }
+  __syncthreads();  // the row's q and tauc, stored by its first thread in the block
+
+  // ---- backward: back substitution, edge fluxes, staged and written per warp ----
+  // the layer's inputs and scratch, read one layer ahead
+  T pa = T(0), pb = T(0), qa = T(0), qb = T(0), tca = T(0), ta = T(0), wa = T(0), ga = T(0);
+  auto fetch = [&](int k) {
+    pa = p_s[int64_t(2 * k) * np + pc];
+    pb = p_s[int64_t(2 * k + 1) * np + pc];
+    qa = q_s[int64_t(2 * k) * rows + row];
+    qb = q_s[int64_t(2 * k + 1) * rows + row];
+    tca = tauc_s[int64_t(k) * rows + row];
+    ta = tau_r[k]; wa = w0_r[k]; ga = gt_r[k];
+  };
+  if (active) fetch(nz - 1);
+  // lane's value of output o (amean, fup, fdn) at staging slot s
+  auto stage = [&](int o, int s, T v) { vals[(o * 32 + lane) * SLOTS + s] = v; };
+  T unext = T(0);
+  int slot = 0, j0 = nz;  // staged edges j0, j0 - 1, ... in slots 0, 1, ...
+  for (int k = nz - 1; k >= 0; --k) {
+    if (active) {
+      const T p0 = pa, p1 = pb, q0 = qa, q1 = qb, tck = tca, tk = ta, wk = wa, gk = ga;
+      if (k > 0) fetch(k - 1);
+      T y1 = p0 - q0 * unext;
+      T y2 = p1 - q1 * unext;
+      unext = y1;
+      Layer<T, 1> c;
+      solar_layer_1(tk, wk, gk, tck, u0, c);
+      T fdn_b = y1 * c.e3 + y2 * c.e4 + c.cmb[0];
+      stage(0, slot, (T(1) / u1) * (y1 * (c.e1 + c.e3) + y2 * (c.e2 + c.e4) + c.cpb[0] + c.cmb[0])
+                         + source_quot(c.dir_b[0], u0));
+      stage(1, slot, y1 * c.e1 + y2 * c.e2 + c.cpb[0]);
+      stage(2, slot, fdn_b + c.dir_b[0]);
+      if (k == nz - 1) out_srad[int64_t(z) * rows + row] = fdn_b / u1 + exp(-(tck + c.tau) / u0);
+      if (k == 0) {
+        T dir_t = u0;  // u0 * Fs_pi, Fs_pi = 1
+        T fup_t = y1 * c.e3 - y2 * c.e4 + c.cp0[0];
+        stage(0, slot + 1, (T(1) / u1) * fup_t + dir_t / u0);
+        stage(1, slot + 1, fup_t);
+        stage(2, slot + 1, dir_t);
+      }
+    }
+    slot += k == 0 ? 2 : 1;
+    if (slot >= E || k == 0) {  // the same at every lane
+      __syncwarp();
+      // edges j0 - slot + 1 .. j0 of each pair, ascending, as one run per
+      // pair and output; element i of the warp's runs: pair l, edge e
+      const int n = slot;
+      for (int i = lane; i < 32 * n; i += 32) {
+        const int l = n == E ? i / E : i / n, e = i - l * n;
+        const int64_t base = bases[l];
+        if (base < 0) continue;
+        const int64_t o = base + (j0 - n + 1 + e);
+        const T* v = vals + l * SLOTS + (n - 1 - e);
+        out_am[o] = v[0];
+        out_fup[o] = v[32 * SLOTS];
+        out_fdn[o] = v[64 * SLOTS];
+      }
+      __syncwarp();
+      j0 -= n;
+      slot = 0;
+    }
+  }
+}
+
+// scratch: q (nz, 2, rows), then tauc (nz, rows), then p (nz, 2, rows*nzen)
+template <typename T>
+int launch_solar_rows(const void* tau, const void* w0, const void* gt, const void* surf,
+                      const void* u0s, int nzen, long long rows, int nz, void* scratch,
+                      void* out_am, void* out_fup, void* out_fdn, void* out_srad,
+                      cudaStream_t stream) {
+  if (nzen < 1 || nz < 1 || rows < 1) return int(cudaErrorInvalidValue);
+  const long long blocks = (rows * nzen + kRowsThreads - 1) / kRowsThreads;
+  if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidConfiguration);
+  constexpr size_t smem = solar_rows_smem<T>();
+  cudaError_t err = cudaFuncSetAttribute(solar_rows_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  T* q = (T*)scratch;
+  T* tauc = q + 2LL * nz * rows;
+  T* p = tauc + 1LL * nz * rows;
+  solar_rows_kernel<T><<<dim3(unsigned(blocks)), kRowsThreads, smem, stream>>>(
+      (const T*)tau, (const T*)w0, (const T*)gt, (const T*)surf, (const T*)u0s, nzen, rows, nz,
+      q, tauc, p, (T*)out_am, (T*)out_fup, (T*)out_fdn, (T*)out_srad);
+  return int(cudaGetLastError());
+}
+
 // ---- The weighted IR kernel ----
 //
 // Replaces clima_tpu/ops/pallas_twostream.py::two_stream_ir_weighted_pallas
@@ -959,9 +1188,7 @@ int dispatch_rows(int solar, int u0_per_row, const void* tau, const void* w0, co
                    out_fup, out_fdn, out_srad, s
   if (!solar) return launch<T, false, false, 1, false>(CLIMA_ARGS);
   if (u0_per_row) return launch<T, true, true, 1, true>(CLIMA_ARGS);
-  if (nzen < 1 || nzen > 8) return int(cudaErrorInvalidValue);
-  if (nzen <= 4) return launch<T, true, true, 4, false>(CLIMA_ARGS);
-  return launch<T, true, true, 8, false>(CLIMA_ARGS);
+  return int(cudaErrorInvalidValue);  // shared zenith cosines: clima_twostream_solar_multi
 #undef CLIMA_ARGS
 }
 
@@ -1002,11 +1229,11 @@ extern "C" int clima_twostream_solar_max_group(int is_f64, int with_amean) {
   return with_amean ? solar_max_group<float, true>() : solar_max_group<float, false>();
 }
 
-// Unreduced: u0 (nzen,) shared, or (rows,) with u0_per_row (then nzen = 1);
-// scratch (nz, 2 + 2*nrhs, rows) with nrhs = 1 (IR, per-row u0), 4 (nzen <= 4)
-// or 8; outputs amean/fup/fdn (nzen, rows, nz+1) and srad (nzen, rows) for
-// solar, fup/fdn (rows, nz+1) for IR (out_am and out_srad unused).
-// Requires nz >= 1 and 1 <= nzen <= 8.
+// Unreduced, the row template: IR, or solar with one zenith cosine per row
+// (u0_per_row = 1, u0 (rows,), nzen = 1; shared zenith cosines go to
+// clima_twostream_solar_multi). Scratch (nz, 4, rows); outputs amean/fup/fdn
+// (rows, nz+1) and srad (rows,) for solar, fup/fdn (rows, nz+1) for IR
+// (out_am and out_srad unused). Requires nz >= 1.
 extern "C" int clima_twostream_rows(int is_f64, int solar, int u0_per_row, const void* tau,
                                     const void* w0, const void* gt, const void* surf,
                                     const void* bpl, const void* u0, int nzen, long long rows,
@@ -1019,4 +1246,22 @@ extern "C" int clima_twostream_rows(int is_f64, int solar, int u0_per_row, const
                                  hard, tau_min, scratch, out_am, out_fup, out_fdn, out_srad, s);
   return dispatch_rows<float>(solar, u0_per_row, tau, w0, gt, surf, bpl, u0, nzen, rows, nz,
                               hard, tau_min, scratch, out_am, out_fup, out_fdn, out_srad, s);
+}
+
+// Unreduced multi-zenith solar: u0s (nzen,) shared by all rows, surf the
+// albedo (rows,); scratch nz * rows * (3 + 2*nzen) values (q, tauc, p);
+// outputs amean/fup/fdn (nzen, rows, nz+1) and srad (nzen, rows). Any
+// nzen >= 1 in one launch; requires nz >= 1, rows >= 1 and
+// ceil(rows * nzen / 128) < 2^31.
+extern "C" int clima_twostream_solar_multi(int is_f64, const void* tau, const void* w0,
+                                           const void* gt, const void* surf, const void* u0s,
+                                           int nzen, long long rows, int nz, void* scratch,
+                                           void* out_am, void* out_fup, void* out_fdn,
+                                           void* out_srad, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_f64)
+    return launch_solar_rows<double>(tau, w0, gt, surf, u0s, nzen, rows, nz, scratch, out_am,
+                                     out_fup, out_fdn, out_srad, s);
+  return launch_solar_rows<float>(tau, w0, gt, surf, u0s, nzen, rows, nz, scratch, out_am,
+                                  out_fup, out_fdn, out_srad, s);
 }

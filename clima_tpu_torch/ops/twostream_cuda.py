@@ -18,11 +18,14 @@ substitution with the edge fluxes: the solar one gives each (row, zenith)
 pair a thread, so it takes any number of zenith angles, the IR one each
 (column, bin, gauss) row. They sum zeniths and gauss points in shared memory
 in a fixed order, with no atomics, so the (rows, nz+1) per-row fluxes never
-reach device memory. The row template behind the three unreduced kernels
-gives each row a thread, carrying up to 8 zenith angles in registers (more
-run as groups of 8), and stores each row's fluxes.
-:func:`ir_weighted_schedule_ref` and :func:`solar_weighted_schedule_ref` are
-plain models of the weighted kernels' schedules, for the tests.
+reach device memory. The unreduced multi-zenith solar kernel runs the
+weighted solar kernel's solve, a thread per (row, zenith) pair, and writes
+each pair's fluxes out through shared memory, so one launch takes any number
+of zenith angles. The row template behind the other two unreduced kernels
+gives each row a thread and stores each row's fluxes.
+:func:`ir_weighted_schedule_ref`, :func:`solar_weighted_schedule_ref` and
+:func:`solar_rows_schedule_ref` are plain models of the kernels' schedules,
+for the tests.
 
 ``launches`` on each wrapper counts its kernel launches.
 """
@@ -37,11 +40,7 @@ from .cuda_build import load_library
 
 __all__ = ["two_stream_ir_weighted_cuda", "two_stream_solar_multi_weighted_cuda",
            "two_stream_ir_auto", "two_stream_solar_multi_auto", "two_stream_solar_auto",
-           "ir_weighted_schedule_ref", "solar_weighted_schedule_ref"]
-
-
-# zenith angles of one launch of the unreduced kernel (its largest instance)
-_ROWS_MAX_ZENITHS = 8
+           "ir_weighted_schedule_ref", "solar_weighted_schedule_ref", "solar_rows_schedule_ref"]
 
 
 def _solar_max_group(is_f64, with_amean):
@@ -157,42 +156,61 @@ def two_stream_solar_multi_weighted_cuda(tau, w0, gt, u0s, Rsfc, zw, wbin, with_
 two_stream_solar_multi_weighted_cuda.launches = 0
 
 
-def _launch_rows(solar, tau, w0, gt, surf, bpl, u0, u0_per_row, hard, tau_min):
-    """Unreduced kernel: IR returns (fup, fdn), each (rows, nz+1); solar
-    returns (amean, srad, fup, fdn) with a leading nzen axis (1 for u0 per
-    row). One launch takes at most ``_ROWS_MAX_ZENITHS`` shared zenith
-    cosines (the caller groups them: :func:`_zenith_groups`)."""
+def _launch_rows(solar, tau, w0, gt, surf, bpl, u0, hard, tau_min):
+    """The row template: IR returns (fup, fdn), each (rows, nz+1); solar,
+    with one zenith cosine per row (u0 (rows,)), returns (amean, srad, fup,
+    fdn), each with the row axis first."""
     rows, nz = tau.shape
-    nzen = 1 if (not solar or u0_per_row) else u0.shape[0]
     if w0.shape != tau.shape or gt.shape != tau.shape or surf.shape != (rows,):
         raise ValueError("tau/w0/gt must be (rows, nz) and the surface term (rows,)")
     if bpl is not None and bpl.shape != (rows, nz + 1):
         raise ValueError("bplanck must be (rows, nz+1)")
-    if solar and u0_per_row and u0.shape != (rows,):
+    if solar and u0.shape != (rows,):
         raise ValueError("u0 must be (rows,)")
-    # right-hand sides of the instantiation: 1 (IR, u0 per row), 4 or 8
-    nrhs = 1 if (not solar or u0_per_row) else (4 if nzen <= 4 else 8)
     kw = dict(dtype=tau.dtype, device=tau.device)
-    scratch = torch.empty((nz, 2 + 2 * nrhs, rows), **kw)
-    fup = torch.empty((nzen, rows, nz + 1), **kw)
-    fdn = torch.empty((nzen, rows, nz + 1), **kw)
-    am = torch.empty((nzen, rows, nz + 1), **kw) if solar else None
-    srad = torch.empty((nzen, rows), **kw) if solar else None
+    scratch = torch.empty((nz, 4, rows), **kw)
+    fup = torch.empty((rows, nz + 1), **kw)
+    fdn = torch.empty((rows, nz + 1), **kw)
+    am = torch.empty((rows, nz + 1), **kw) if solar else None
+    srad = torch.empty((rows,), **kw) if solar else None
     ptr = lambda t: t.data_ptr() if t is not None else None
     fn = load_library("twostream")["clima_twostream_rows"]
-    status = fn(int(tau.dtype == torch.float64), int(solar), int(u0_per_row),
+    status = fn(int(tau.dtype == torch.float64), int(solar), int(solar),
                 tau.data_ptr(), w0.data_ptr(), gt.data_ptr(), surf.data_ptr(), ptr(bpl),
-                ptr(u0), nzen, rows, nz, int(hard), float(tau_min), scratch.data_ptr(),
+                ptr(u0), 1, rows, nz, int(hard), float(tau_min), scratch.data_ptr(),
                 ptr(am), fup.data_ptr(), fdn.data_ptr(), ptr(srad),
                 torch.cuda.current_stream(tau.device).cuda_stream)
     if status != 0:
         raise RuntimeError(f"two-stream kernel launch failed: CUDA error {status}")
-    if not solar:
-        return fup[0], fdn[0]
+    return (am, srad, fup, fdn) if solar else (fup, fdn)
+
+
+def _launch_solar_multi(tau, w0, gt, u0s, Rsfc):
+    """The unreduced multi-zenith solar kernel, one launch for any number of
+    zenith cosines u0s (nzen,): (amean, srad, fup, fdn) with a leading nzen
+    axis."""
+    rows, nz = tau.shape
+    nzen = u0s.shape[0]
+    if w0.shape != tau.shape or gt.shape != tau.shape or Rsfc.shape != (rows,):
+        raise ValueError("tau/w0/gt must be (rows, nz) and Rsfc (rows,)")
+    if u0s.ndim != 1 or nzen < 1:
+        raise ValueError(f"u0s must be (nzen,) with nzen >= 1, not {tuple(u0s.shape)}")
+    kw = dict(dtype=tau.dtype, device=tau.device)
+    # q (nz, 2, rows), tauc (nz, rows) and p (nz, 2, rows * nzen)
+    scratch = torch.empty(nz * rows * (3 + 2 * nzen), **kw)
+    am, fup, fdn = (torch.empty((nzen, rows, nz + 1), **kw) for _ in range(3))
+    srad = torch.empty((nzen, rows), **kw)
+    fn = load_library("twostream")["clima_twostream_solar_multi"]
+    status = fn(int(tau.dtype == torch.float64), tau.data_ptr(), w0.data_ptr(), gt.data_ptr(),
+                Rsfc.data_ptr(), u0s.data_ptr(), nzen, rows, nz, scratch.data_ptr(),
+                am.data_ptr(), fup.data_ptr(), fdn.data_ptr(), srad.data_ptr(),
+                torch.cuda.current_stream(tau.device).cuda_stream)
+    if status != 0:
+        raise RuntimeError(f"two-stream kernel launch failed: CUDA error {status}")
     return am, srad, fup, fdn
 
 
-def _zenith_groups(solve, u0s, size=_ROWS_MAX_ZENITHS, zw=None):
+def _zenith_groups(solve, u0s, size, zw=None):
     """``solve`` over consecutive groups of at most ``size`` zenith angles.
     Each zenith's solve is independent of the others', so this is exact:
     per-zenith outputs (``zw`` None, ``solve(u0s_group)``) are joined along
@@ -230,8 +248,8 @@ def two_stream_ir_auto(tau, w0, gt, emissivity, has_hard_surface, tau_min, bplan
     if not isinstance(tau_min, (int, float)):
         raise TypeError("tau_min must be a Python float for the kernel")
     _device_checked(dict(tau=tau, w0=w0, gt=gt, emissivity=emissivity, bplanck=bplanck))
-    out = _launch_rows(False, tau, w0, gt, emissivity, bplanck, None, False,
-                       has_hard_surface, tau_min)
+    out = _launch_rows(False, tau, w0, gt, emissivity, bplanck, None, has_hard_surface,
+                       tau_min)
     two_stream_ir_auto.launches += 1
     return out
 
@@ -246,19 +264,16 @@ def two_stream_solar_multi_auto(tau, w0, gt, u0s, Rsfc):
     tau/w0/gt (rows, nz) TOA-down, u0s (nzen,) shared by all rows, Rsfc
     (rows,). Returns (amean, surface_radiance, fup, fdn): amean/fup/fdn
     (nzen, rows, nz+1), surface_radiance (nzen, rows). On the card one
-    launch takes up to 8 zenith angles; more run as groups of 8.
-    Twin: :func:`.twostream.two_stream_solar_multi`.
+    launch takes any number of zenith angles. Twin:
+    :func:`.twostream.two_stream_solar_multi`; plain model of the kernel's
+    schedule: :func:`solar_rows_schedule_ref`.
     """
     if tau.device.type == "cpu":
         return ts.two_stream_solar_multi(tau, w0, gt, u0s, Rsfc)
     _device_checked(dict(tau=tau, w0=w0, gt=gt, u0s=u0s, Rsfc=Rsfc))
-
-    def launch(u0_group):
-        out = _launch_rows(True, tau, w0, gt, Rsfc, None, u0_group, False, False, 0.0)
-        two_stream_solar_multi_auto.launches += 1
-        return out
-
-    return _zenith_groups(launch, u0s)
+    out = _launch_solar_multi(tau, w0, gt, u0s, Rsfc)
+    two_stream_solar_multi_auto.launches += 1
+    return out
 
 
 two_stream_solar_multi_auto.launches = 0
@@ -275,9 +290,9 @@ def two_stream_solar_auto(tau, w0, gt, u0, Rsfc):
     if tau.device.type == "cpu":
         return ts.two_stream_solar(tau, w0, gt, u0, Rsfc)
     _device_checked(dict(tau=tau, w0=w0, gt=gt, u0=u0, Rsfc=Rsfc))
-    am, srad, fup, fdn = _launch_rows(True, tau, w0, gt, Rsfc, None, u0, True, False, 0.0)
+    out = _launch_rows(True, tau, w0, gt, Rsfc, None, u0, False, 0.0)
     two_stream_solar_auto.launches += 1
-    return am[0], srad[0], fup[0], fdn[0]
+    return out
 
 
 two_stream_solar_auto.launches = 0
@@ -285,8 +300,8 @@ two_stream_solar_auto.launches = 0
 
 def _solar_layer_ref(tau, w0, gt, tauc, u0):
     """One layer's coefficients as the kernel's ``solar_layer`` forms them:
-    tau/w0/gt/tauc (rows, 1), u0 (1, nzen). e1-e4 and the scaled tau are
-    (rows, 1), the sources (rows, nzen)."""
+    tau/w0/gt/tauc (rows, 1), u0 (1, nzen). e1-e4, the scaled tau and tauc
+    are (rows, 1), the sources (rows, nzen)."""
     s3 = ts._SQRT3
     gg = gt * gt
     tau_s = tau * (1.0 - w0 * gg)
@@ -304,26 +319,18 @@ def _solar_layer_ref(tau, w0, gt, tauc, u0):
     et0 = torch.exp(-tauc / u0)
     etb = et0 * torch.exp(-tau_s / u0)
     denom = lam * lam - inv_u0 * inv_u0
-    return dict(e1=e1, e2=e2, e3=e3, e4=e4, tau=tau_s, cp0=et0 * facp / denom,
+    return dict(e1=e1, e2=e2, e3=e3, e4=e4, tau=tau_s, tauc=tauc, cp0=et0 * facp / denom,
                 cpb=etb * facp / denom, cm0=et0 * facm / denom, cmb=etb * facm / denom,
                 dir_b=u0 * etb)
 
 
-def solar_weighted_schedule_ref(tau, w0, gt, u0s, Rsfc, zw, wbin, with_amean=True):
-    """Plain PyTorch model of the weighted solar kernel's schedule, for the
-    tests; no path calls it. Same arguments and outputs as
-    :func:`two_stream_solar_multi_weighted_cuda`.
-
-    (rows, nzen) are tensor axes where the kernel has a thread per pair. The
-    forward pass loops over layers top to bottom: layer coefficients, the
-    2x2-block Thomas elimination, and q, tauc (per row) and p (per row and
-    zenith) stored per layer. The backward pass, bottom to top, forms u_k =
-    p_k - q_k u_{k+1}[0], recomputes the layer's coefficients from the stored
-    tauc and reduces its edge fluxes at once: zeniths in order with zw, then
-    the gauss rows of each group in order with wbin, the kernel's order.
-    """
+def _solar_forward_ref(tau, w0, gt, u0s, Rsfc):
+    """The forward pass of the solar kernels' schedule, a thread per (row,
+    zenith) as the tensor axes (rows, nzen): layer coefficients top to bottom,
+    the 2x2-block Thomas elimination, and per layer q and tauc (rows, 1) and p
+    (rows, nzen). Returns (q, p, tauc, layer), ``layer(k, tauc_k)`` the
+    coefficients of layer k."""
     rows, nz = tau.shape
-    nzen, nG = u0s.shape[0], wbin.shape[0]
     u0 = u0s[None, :]
     col = lambda x, k: x[:, k:k + 1]
     zero = torch.zeros((rows, 1), dtype=tau.dtype, device=tau.device)
@@ -364,6 +371,38 @@ def solar_weighted_schedule_ref(tau, w0, gt, u0s, Rsfc, zw, wbin, with_amean=Tru
         if nxt_ev is not None:
             cur = nxt
             Aev, Bev, Dev, Eev = nxt_ev
+    return q, p, tauc_k, layer
+
+
+def _solar_backward_ref(q, p, tauc_k, layer):
+    """The backward pass of the solar kernels' schedule: for each layer k,
+    bottom to top, yields (k, y1, y2, c), u_k = (y1, y2) = p_k - q_k
+    u_{k+1}[0] and c the layer's coefficients recomputed from the stored
+    tauc."""
+    unext = 0.0
+    for k in range(len(q) - 1, -1, -1):
+        y1 = p[k][0] - q[k][0] * unext
+        y2 = p[k][1] - q[k][1] * unext
+        unext = y1
+        yield k, y1, y2, layer(k, tauc_k[k])
+
+
+def solar_weighted_schedule_ref(tau, w0, gt, u0s, Rsfc, zw, wbin, with_amean=True):
+    """Plain PyTorch model of the weighted solar kernel's schedule, for the
+    tests; no path calls it. Same arguments and outputs as
+    :func:`two_stream_solar_multi_weighted_cuda`.
+
+    (rows, nzen) are tensor axes where the kernel has a thread per pair. The
+    forward pass loops over layers top to bottom: layer coefficients, the
+    2x2-block Thomas elimination, and q, tauc (per row) and p (per row and
+    zenith) stored per layer. The backward pass, bottom to top, forms u_k =
+    p_k - q_k u_{k+1}[0], recomputes the layer's coefficients from the stored
+    tauc and reduces its edge fluxes at once: zeniths in order with zw, then
+    the gauss rows of each group in order with wbin, the kernel's order.
+    """
+    rows, nz = tau.shape
+    nzen, nG = u0s.shape[0], wbin.shape[0]
+    u0 = u0s[None, :]
 
     def reduce(v):  # (rows, nzen) -> (groups,): zeniths in order, then gauss rows
         acc = torch.zeros(rows, dtype=tau.dtype, device=tau.device)
@@ -378,12 +417,7 @@ def solar_weighted_schedule_ref(tau, w0, gt, u0s, Rsfc, zw, wbin, with_amean=Tru
     n_out = 3 if with_amean else 2
     out = [[None] * (nz + 1) for _ in range(n_out)]
     u1 = 1.0 / ts._SQRT3
-    unext = 0.0
-    for k in range(nz - 1, -1, -1):
-        y1 = p[k][0] - q[k][0] * unext
-        y2 = p[k][1] - q[k][1] * unext
-        unext = y1
-        c = layer(k, tauc_k[k])
+    for k, y1, y2, c in _solar_backward_ref(*_solar_forward_ref(tau, w0, gt, u0s, Rsfc)):
         fup_t = y1 * c["e3"] - y2 * c["e4"] + c["cp0"]
         bot = [y1 * c["e1"] + y2 * c["e2"] + c["cpb"],
                y1 * c["e3"] + y2 * c["e4"] + c["cmb"] + c["dir_b"]]
@@ -398,6 +432,40 @@ def solar_weighted_schedule_ref(tau, w0, gt, u0s, Rsfc, zw, wbin, with_amean=Tru
                 out[o][0] = reduce(top[o])
     fup, fdn, *am = (torch.stack(edges, dim=-1) for edges in out)
     return (am[0] if with_amean else None), fup, fdn
+
+
+def solar_rows_schedule_ref(tau, w0, gt, u0s, Rsfc):
+    """Plain PyTorch model of the unreduced multi-zenith solar kernel's
+    schedule, for the tests; no path calls it. Same arguments and outputs as
+    :func:`two_stream_solar_multi_auto`.
+
+    (rows, nzen) are tensor axes where the kernel has a thread per pair. The
+    forward pass is the weighted solar kernel's (:func:`_solar_forward_ref`).
+    The backward pass, bottom to top, forms u_k = p_k - q_k u_{k+1}[0],
+    recomputes the layer's coefficients from the stored tauc and forms the
+    layer's lower edge (at the top layer also the upper edge) of amean, fup
+    and fdn at once, and at the bottom layer the surface radiance from tauc
+    plus the layer's optical depth.
+    """
+    nz = tau.shape[1]
+    u0 = u0s[None, :]
+    u1 = 1.0 / ts._SQRT3
+    out = [[None] * (nz + 1) for _ in range(3)]  # amean, fup, fdn: (rows, nzen) per edge
+    for k, y1, y2, c in _solar_backward_ref(*_solar_forward_ref(tau, w0, gt, u0s, Rsfc)):
+        fdn_b = y1 * c["e3"] + y2 * c["e4"] + c["cmb"]
+        out[0][k + 1] = ((1.0 / u1) * (y1 * (c["e1"] + c["e3"]) + y2 * (c["e2"] + c["e4"])
+                                       + c["cpb"] + c["cmb"]) + c["dir_b"] / u0)
+        out[1][k + 1] = y1 * c["e1"] + y2 * c["e2"] + c["cpb"]
+        out[2][k + 1] = fdn_b + c["dir_b"]
+        if k == nz - 1:
+            srad = fdn_b / u1 + torch.exp(-(c["tauc"] + c["tau"]) / u0)
+        if k == 0:
+            fup_t = y1 * c["e3"] - y2 * c["e4"] + c["cp0"]
+            out[0][0] = (1.0 / u1) * fup_t + u0 / u0
+            out[1][0] = fup_t
+            out[2][0] = u0.expand_as(fup_t)
+    am, fup, fdn = (torch.stack(edges, dim=-1).transpose(0, 1) for edges in out)
+    return am, srad.T, fup, fdn
 
 
 def _ir_layer_ref(tau, w0, gt, b_top, b_bot, tau_min):

@@ -23,6 +23,13 @@ from ..radtran.radiate import integrate_fluxes, radiate_ir, radiate_solar
 __all__ = ["make_column_fns", "batched_toa_fluxes", "batched_surface_temperature"]
 
 
+def _no_mesh(mesh):
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh: sharding columns over devices (make_mesh/shard_columns, the multi-device "
+            "item of ROADMAP Queue 1) is not ported; pass mesh=None")
+
+
 def make_column_fns(c):
     """Build batched column functions from an AdiabatClimate instance.
 
@@ -134,24 +141,27 @@ def make_column_fns(c):
                 column_model=column_model, profile_only=profile_only)
 
 
-def batched_toa_fluxes(c, T_surf_batch, P_i_surf_batch):
-    """Batched TOA fluxes (ISR, OLR), each (B,), on ``c.device``."""
-    t = lambda x: torch.as_tensor(np.asarray(x, dtype=np.float64), dtype=c.dtype,
-                                  device=c.device)
+def batched_toa_fluxes(c, T_surf_batch, P_i_surf_batch, mesh=None):
+    """Batched TOA fluxes (ISR, OLR), each (B,), on ``c.device``. The
+    inputs may be numbers, arrays or tensors on any device. Sharding over a
+    device mesh is not ported: ``mesh`` must be None."""
+    _no_mesh(mesh)
+    t = lambda x: torch.as_tensor(x, dtype=c.dtype, device=c.device)
     return make_column_fns(c)["toa_fluxes"](t(T_surf_batch), t(P_i_surf_batch))
 
 
-def batched_surface_temperature(c, P_i_surf_batch, T_guess=280.0, max_iter=30):
+def batched_surface_temperature(c, P_i_surf_batch, T_guess=280.0, max_iter=30, mesh=None):
     """Solve ISR-OLR=0 for every column in the batch on ``c.device``.
 
     Every lane steps until all lanes have converged or ``max_iter`` steps
     were taken, as the JAX package's ``while_loop`` does (converged lanes
     keep their value). Returns (T_surf (B,), resid (B,), converged (B,),
-    iterations).
+    iterations). Sharding over a device mesh is not ported: ``mesh`` must be
+    None.
     """
+    _no_mesh(mesh)
     step = make_column_fns(c)["newton_step"]
-    P_i = torch.as_tensor(np.asarray(P_i_surf_batch, dtype=np.float64), dtype=c.dtype,
-                          device=c.device)
+    P_i = torch.as_tensor(P_i_surf_batch, dtype=c.dtype, device=c.device)
     B = P_i.shape[0]
     state = (torch.full((B,), np.log10(T_guess), dtype=c.dtype, device=c.device),
              torch.full((B,), torch.inf, dtype=c.dtype, device=c.device),

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ..physics import eqns
-from .pipeline import make_column_fns
+from .pipeline import _no_mesh, make_column_fns
 
 __all__ = [
     "newton_solve",
@@ -158,13 +158,6 @@ def newton_solve(residual_fn, x0_ladder, *, tol=1.0e-8, max_iter=50, n_backtrack
     floor = torch.maximum(torch.abs(fp[:, 1] - fp[:, 0]), torch.abs(fp[:, 2] - fp[:, 0]))
     status = torch.where(done, 0, torch.where(best_f < 10.0 * floor, 2, 3))
     return best_x, best_f, done, floor, status
-
-
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: sharding columns over devices (make_mesh/shard_columns, the multi-device "
-            "item of ROADMAP Queue 1) is not ported; pass mesh=None")
 
 
 def _lanes(t, N):

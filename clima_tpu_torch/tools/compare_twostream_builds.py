@@ -11,10 +11,18 @@ build then runs, through the port's wrappers,
   layers, nG 8) and the adiabat path's (1792 rows x 102 layers), in float64
   and float32, hard surface, random inputs in chip_smoke.py's ranges with a
   thin layer;
+- the weighted solar kernel (#2) at the radtran path's shape (65536 rows x
+  202 layers, nG 8, the 4 Gauss zenith cosines, amean on), float64;
 - the unreduced kernels (#4-#6) at the roofline shapes (122880 rows x 202
-  layers, the inputs of chip_smoke.py's phase 3b).
-Every build's outputs are compared bitwise with every other build's; #1's
-float64 outputs are also held to the plain twin (rtol 1e-9, atol 1e-12).
+  layers, the inputs of chip_smoke.py's phase 3b), #5 at 4 and 12 zenith
+  angles.
+A build whose library predates the multi-zenith solar entry point
+(``clima_twostream_solar_multi``) runs #5 on its row template's shared-zenith
+instances instead, as the wrapper of its day did: groups of at most 8 zenith
+angles, one launch each, joined along the zenith axis.
+Every build's outputs are compared bitwise with every other build's, and the
+largest difference from the first build is printed; #1's float64 outputs and
+#2's are also held to the plain twin (rtol 1e-9, atol 1e-12).
 The builds are timed in turns with CUDA events (the first build, the others,
 the others again in reverse order, the first again; each time the mean of
 ``--reps`` launches after a warm-up), and each build's two times are
@@ -52,9 +60,10 @@ def build(name, path):
     lib = ctypes.CDLL(out)
     fns = {}
     for fname, argtypes in cuda_build._SIGNATURES["twostream"].items():
-        fn = getattr(lib, fname)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        fns[fname] = fn
+        if hasattr(lib, fname):
+            fn = getattr(lib, fname)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            fns[fname] = fn
     lines, fn = [], None
     for line in log.splitlines():
         if "Function properties for" in line:
@@ -64,15 +73,51 @@ def build(name, path):
     return fns, lines
 
 
+def _row_template_solar_multi(fns):
+    """``twostream_cuda._launch_solar_multi`` for a library that predates
+    ``clima_twostream_solar_multi``, as the wrapper of its day launched #5:
+    the row template's shared-zenith instances (``clima_twostream_rows`` with
+    u0_per_row = 0) on groups of at most 8 zenith angles, each with its own
+    (nz, 2 + 2 NR, rows) scratch (NR 4 up to 4 zenith angles, else 8) and
+    outputs, joined along the zenith axis."""
+    rows_fn = fns["clima_twostream_rows"]
+
+    def launch(tau, w0, gt, u0s, Rsfc):
+        rows, nz = tau.shape
+        kw = dict(dtype=tau.dtype, device=tau.device)
+
+        def group(u0):
+            nzen = u0.shape[0]
+            scratch = torch.empty((nz, 2 + 2 * (4 if nzen <= 4 else 8), rows), **kw)
+            am, fup, fdn = (torch.empty((nzen, rows, nz + 1), **kw) for _ in range(3))
+            srad = torch.empty((nzen, rows), **kw)
+            status = rows_fn(int(tau.dtype == torch.float64), 1, 0, tau.data_ptr(),
+                             w0.data_ptr(), gt.data_ptr(), Rsfc.data_ptr(), None,
+                             u0.data_ptr(), nzen, rows, nz, 0, 0.0, scratch.data_ptr(),
+                             am.data_ptr(), fup.data_ptr(), fdn.data_ptr(), srad.data_ptr(),
+                             torch.cuda.current_stream(tau.device).cuda_stream)
+            if status != 0:
+                raise RuntimeError(f"two-stream kernel launch failed: CUDA error {status}")
+            return am, srad, fup, fdn
+
+        return twostream_cuda._zenith_groups(group, u0s, 8)
+
+    return launch
+
+
 @contextlib.contextmanager
 def using(fns):
-    """The wrappers of ``ops/twostream_cuda.py`` launch the kernels of ``fns``."""
-    load = twostream_cuda.load_library
+    """The wrappers of ``ops/twostream_cuda.py`` launch the kernels of ``fns``
+    (#5 on the row template where ``fns`` predates its own entry point)."""
+    load, launch = twostream_cuda.load_library, twostream_cuda._launch_solar_multi
     twostream_cuda.load_library = lambda _name: fns
+    if "clima_twostream_solar_multi" not in fns:
+        twostream_cuda._launch_solar_multi = _row_template_solar_multi(fns)
     try:
         yield
     finally:
         twostream_cuda.load_library = load
+        twostream_cuda._launch_solar_multi = launch
 
 
 def event_ms(fn, reps):
@@ -101,11 +146,14 @@ def compare(label, built, fn, reps, want=None):
     for n in [names[0], *names[1:], *names[1:][::-1], names[0]]:
         with using(built[n][0]):
             times[n].append(event_ms(fn, reps))
+    first = outs[names[0]]
     for n, out in outs.items():
         same = [m for m in names if m != n
                 and all(torch.equal(a, b) for a, b in zip(out, outs[m]))]
+        diff = max(float((a - b).abs().max()) for a, b in zip(out, first))
         line = (f"{label} {n}: {' / '.join(f'{t:.4f}' for t in times[n])} ms; "
-                f"bitwise equal to: {', '.join(same) or 'none'}")
+                f"bitwise equal to: {', '.join(same) or 'none'}; "
+                f"largest difference from {names[0]}: {diff:.3e}")
         if want is not None:
             ok = all(torch.allclose(a, b, rtol=1e-9, atol=1e-12) for a, b in zip(out, want))
             err = max(float((a - b).abs().max()) for a, b in zip(out, want))
@@ -159,18 +207,37 @@ def main(argv=None):
     ang, _ = eqns.zenith_angles_and_weights(4)
     u0s = torch.tensor(np.cos(ang * np.pi / 180.0), device=dev)
     u0 = u0s[torch.arange(rows, device=dev) % 4].contiguous()
+    ang12, _ = eqns.zenith_angles_and_weights(12)
+    u0s12 = torch.tensor(np.cos(ang12 * np.pi / 180.0), device=dev)
     rs = 0.6 * rand(rows)
     wrappers = {
         "#4 two_stream_ir_auto": lambda: twostream_cuda.two_stream_ir_auto(
             tau, w0, gt, emis, True, 1e-6, bpl),
         "#5 two_stream_solar_multi_auto": lambda: twostream_cuda.two_stream_solar_multi_auto(
             tau, w0, gt, u0s, rs),
+        "#5 two_stream_solar_multi_auto, 12 zeniths":
+            lambda: twostream_cuda.two_stream_solar_multi_auto(tau, w0, gt, u0s12, rs),
         "#6 two_stream_solar_auto": lambda: twostream_cuda.two_stream_solar_auto(
             tau, w0, gt, u0, rs),
     }
     for label, fn in wrappers.items():
         compare(f"{label} ({rows} x {nz}) float64", built, fn, max(2, args.reps // 2))
         torch.cuda.empty_cache()
+    del tau, w0, gt, emis, bpl, rs, wrappers
+    torch.cuda.empty_cache()
+
+    # the weighted solar kernel (#2) at the radtran path's shape, amean on
+    rows, nz = 65536, 202
+    tau = 1e-6 + (2.0 - 1e-6) * rand(rows, nz)
+    w0, gt = 0.02 + 0.979 * rand(rows, nz), 0.85 * rand(rows, nz)
+    ang, zw = eqns.zenith_angles_and_weights(4)
+    sol = (tau, w0, gt, torch.tensor(np.cos(ang * np.pi / 180.0), device=dev), 0.6 * rand(rows),
+           torch.tensor(zw, device=dev), wbin)
+    compare(f"#2 radtran shape ({rows} x {nz}, 4 zeniths) float64", built,
+            lambda: twostream_cuda.two_stream_solar_multi_weighted_cuda(*sol), args.reps,
+            twostream.two_stream_solar_multi_weighted(*sol))
+    del tau, w0, gt, sol
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -20,9 +20,10 @@ from clima_tpu_torch.data import make_template
 from clima_tpu_torch.ops import rorr, rorr_cuda, twostream, twostream_cuda
 from clima_tpu_torch.ops.cuda_graph import CAPTURES
 from clima_tpu_torch.parallel import (batched_make_column, batched_make_profile_bg_gas,
+                                      batched_surface_temperature,
                                       batched_surface_temperature_bg_gas,
                                       batched_surface_temperature_column,
-                                      batched_surface_temperature_trop)
+                                      batched_surface_temperature_trop, batched_toa_fluxes)
 from clima_tpu_torch.physics import eqns
 from clima_tpu_torch.radtran import opacity, radiate
 from clima_tpu_torch.radtran.opacity import _rorr_mix
@@ -262,17 +263,73 @@ def test_ir_auto_kernel_matches_twin(dev, hard):
     assert twostream_cuda.two_stream_ir_auto.launches == n + 1
 
 
-@pytest.mark.parametrize("nzen", [1, 4, 7, 9, 12, 16])
+@pytest.mark.parametrize("nzen", [1, 4, 7, 9, 12, 16, 33])
 def test_solar_multi_auto_kernel_matches_twin(dev, nzen):
+    """300 rows: the last block of 128 (row, zenith) pairs is partial, and
+    at most zenith counts a row's zeniths straddle two blocks. One launch at
+    every zenith count."""
     rows, nz = 300, 31
     tau, w0, gt = _atm(rows, nz, dev, 13)
     rng = np.random.default_rng(14)
     t = lambda x: torch.tensor(x, device=dev)
     args = (tau, w0, gt, t(rng.uniform(0.2, 1.0, nzen)), t(rng.uniform(0.0, 0.6, rows)))
     n = twostream_cuda.two_stream_solar_multi_auto.launches
-    _close(twostream_cuda.two_stream_solar_multi_auto(*args), twostream.two_stream_solar_multi(*args))
-    # one launch per group of at most 8 zenith angles
-    assert twostream_cuda.two_stream_solar_multi_auto.launches == n + (nzen + 7) // 8
+    got = twostream_cuda.two_stream_solar_multi_auto(*args)
+    assert twostream_cuda.two_stream_solar_multi_auto.launches == n + 1
+    assert got[0].shape == (nzen, rows, nz + 1) and got[1].shape == (nzen, rows)
+    _close(got, twostream.two_stream_solar_multi(*args))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("nz", [1, 16, 17, 202])
+def test_solar_multi_auto_kernel_matches_schedule_ref(dev, nz, dtype):
+    """The kernel against the plain model of its schedule and against the
+    twin, on inputs away from the lam^2 = 1/u0^2 resonance (zenith cosines
+    below 3**-0.5), at layer counts around the 16 float64 / 32 float32 edges
+    a warp stages: float64 at rtol 1e-9, float32 at 1e-4 of the largest
+    value; two calls give bitwise equal outputs."""
+    rows, nzen = 200, 5
+    tau, w0, gt = _atm(rows, max(nz, 6), dev, 21)
+    rng = np.random.default_rng(22)
+    t = lambda x: torch.tensor(x, dtype=dtype, device=dev)
+    args = (tau[:, :nz].contiguous().to(dtype), w0[:, :nz].contiguous().to(dtype),
+            gt[:, :nz].contiguous().to(dtype), t(rng.uniform(0.2, 0.55, nzen)),
+            t(rng.uniform(0.0, 0.6, rows)))
+    got = twostream_cuda.two_stream_solar_multi_auto(*args)
+    assert got[2].dtype == dtype
+    again = twostream_cuda.two_stream_solar_multi_auto(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    close = _close if dtype == torch.float64 else _close_f32
+    close(got, twostream_cuda.solar_rows_schedule_ref(*args))
+    close(got, twostream.two_stream_solar_multi(*args))
+
+
+def test_solar_multi_auto_matches_the_parent_build(dev):
+    """#5 built from this checkout and from the parent commit's
+    csrc/twostream.cu (its path in TWOSTREAM_PARENT_SOURCE; the parent ran
+    the row template, 4 zenith angles in one launch) on the same inputs:
+    bitwise equal, or the largest difference printed and within rtol 1e-9,
+    atol 1e-12."""
+    import os
+
+    from clima_tpu_torch.tools import compare_twostream_builds as builds
+
+    parent = os.environ.get("TWOSTREAM_PARENT_SOURCE")
+    if not parent:
+        pytest.skip("set TWOSTREAM_PARENT_SOURCE to the parent commit's csrc/twostream.cu")
+    rows, nz = 1000, 61
+    tau, w0, gt = _atm(rows, nz, dev, 23)
+    rng = np.random.default_rng(24)
+    t = lambda x: torch.tensor(x, device=dev)
+    args = (tau, w0, gt, t(rng.uniform(0.2, 1.0, 4)), t(rng.uniform(0.0, 0.6, rows)))
+    old, _ = builds.build("parent", parent)
+    with builds.using(old):
+        want = twostream_cuda.two_stream_solar_multi_auto(*args)
+    got = twostream_cuda.two_stream_solar_multi_auto(*args)
+    diff = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    print(f"largest difference from the parent build: {diff:.3e}")
+    if diff > 0:
+        _close(got, want)
 
 
 def test_solar_auto_kernel_matches_twin(dev):
@@ -438,6 +495,27 @@ def test_device_rce_on_the_card_matches_the_cpu_rebuild(dev):
                                atol=1e-9 * np.abs(f_total).max())
     ratio = np.abs(dFdt.numpy()).max(axis=1) * 1e-3 / (gpu.rad.bolometric_flux() / 4.0)
     assert (ratio < cpu.xtol_rc).all(), ratio
+
+
+def test_card_tensors_are_accepted_as_inputs(dev):
+    """The port's outputs on the card go back in as inputs: batched_toa_fluxes
+    on batched_surface_temperature's T_surf, and batched_rce (B=2) restarted
+    from its own converged result, every lane of the restart status 0."""
+    tpl = make_template(nz=8, n_zenith=2, surface_albedo=0.3)
+    c = AdiabatClimate(tpl["species"], tpl["settings"], tpl["star"], tpl["datadir"], substeps=2)
+    P_i, T_surf, T = _device_rce_lanes(c)
+    T_s, _, conv, _ = batched_surface_temperature(c, P_i)
+    assert T_s.device.type == "cuda" and bool(conv.all())
+    isr, olr = batched_toa_fluxes(c, T_s, torch.as_tensor(P_i, device=dev))
+    assert isr.device.type == "cuda"
+    np.testing.assert_allclose(isr.cpu().numpy(), olr.cpu().numpy(), rtol=1e-5)
+    out = rce_device.batched_rce(c, P_i, T_surf, T)
+    assert (out["status"] == 0).all()
+    again = rce_device.batched_rce(c, torch.as_tensor(P_i, device=dev), out["T_surf"], out["T"],
+                                   out["convecting_with_below"])
+    assert again["T"].device.type == "cuda" and (again["status"] == 0).all()
+    np.testing.assert_allclose(again["T_surf"].cpu().numpy(), out["T_surf"].cpu().numpy(),
+                               rtol=1e-4)
 
 
 def test_device_rce_objective_launches_the_kernels_not_the_twins(dev):

@@ -112,3 +112,25 @@ def test_rce_device_signatures_match_reference():
         want = inspect.signature(getattr(ref, name)).parameters
         assert [(p.name, p.default, p.kind) for p in got.values()] == \
             [(p.name, p.default, p.kind) for p in want.values()], name
+
+
+def test_pipeline_signatures_match_reference():
+    """batched_toa_fluxes and batched_surface_temperature take the JAX
+    package's parameters with its defaults, mesh included, and raise on a
+    mesh, which the port does not shard over."""
+    import inspect
+
+    import clima_tpu.parallel.pipeline as ref
+    import pytest
+
+    import clima_tpu_torch.parallel.pipeline as port
+
+    for name in ("batched_toa_fluxes", "batched_surface_temperature"):
+        got = inspect.signature(getattr(port, name)).parameters
+        want = inspect.signature(getattr(ref, name)).parameters
+        assert [(p.name, p.default, p.kind) for p in got.values()] == \
+            [(p.name, p.default, p.kind) for p in want.values()], name
+    with pytest.raises(NotImplementedError, match="mesh"):
+        port.batched_toa_fluxes(None, [280.0], [[1e6]], mesh=object())
+    with pytest.raises(NotImplementedError, match="mesh"):
+        port.batched_surface_temperature(None, [[1e6]], mesh=object())

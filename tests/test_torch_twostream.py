@@ -1,8 +1,9 @@
 """Two-stream twins of the PyTorch port against clima_tpu (float64, CPU):
 the XLA-path twins at rtol 1e-12 (same math), the Pallas kernels in
 interpret mode at rtol 1e-9 / atol 1e-12 (the JAX tests' own bound), the
-plain models of the weighted IR and solar kernels' schedules at that bound,
-the zenith grouping of the kernel wrappers, and their CPU dispatch."""
+plain models of the weighted IR and solar kernels' schedules at that bound
+and of the unreduced multi-zenith solar kernel's at rtol 1e-10, the zenith
+grouping of the kernel wrappers, and their CPU dispatch."""
 
 import functools
 from unittest import mock
@@ -270,6 +271,25 @@ def test_solar_multi_auto_matches_pallas_kernel(interpret):
     _close(got, kern, 1e-10, ATOL_KERNEL)
 
 
+@pytest.mark.parametrize("nzen", [1, 4, 12])
+def test_solar_rows_schedule_ref_matches_pallas_kernel(interpret, nzen):
+    """The plain model of the unreduced multi-zenith solar kernel's schedule
+    (a thread per (row, zenith), back substitution fused with the edge
+    fluxes and the surface radiance) against the multi-zenith Pallas kernel
+    in interpret mode, with a thin layer. Zenith cosines below 3**-0.5 keep
+    1/u0^2 above every layer's lam^2 (< 3), away from the resonance of the
+    solar source."""
+    B, nz = 16, 19
+    tau, w0, gt = _atm(B, nz, seed=50 + nzen)
+    tau[3, 4] = 1e-7
+    rng = np.random.default_rng(51)
+    u0s, rs = rng.uniform(0.2, 0.55, nzen), rng.uniform(0.0, 0.6, B)
+    kern = pts.two_stream_solar_multi_pallas(*J(tau, w0, gt, u0s, rs), block_b=8)
+    got = tc.solar_rows_schedule_ref(*T(tau, w0, gt, u0s, rs))
+    assert got[1].shape == (nzen, B) and got[0].shape == (nzen, B, nz + 1)
+    _close(got, kern, 1e-10, ATOL_KERNEL)
+
+
 def test_solar_auto_matches_pallas_kernel(interpret):
     """two_stream_solar_auto with one zenith cosine per row on the CPU against
     the single-zenith Pallas kernel, surface radiance included."""
@@ -285,9 +305,9 @@ def test_solar_auto_matches_pallas_kernel(interpret):
 
 @pytest.mark.parametrize("nzen", [9, 12, 16])
 def test_zenith_groups_match_the_unsplit_solve(nzen):
-    """The zenith groups of the unreduced multi-zenith kernel (at most 8 per
-    launch), with the twin taking the launch's place: split and joined along
-    the zenith axis, the outputs equal the unsplit twin's."""
+    """Zenith groups of 8 with per-zenith outputs, with the twin taking the
+    launch's place: split and joined along the zenith axis, the outputs equal
+    the unsplit twin's."""
     B, nz = 12, 15
     tau, w0, gt = _atm(B, nz, seed=20 + nzen)
     rng = np.random.default_rng(21)
@@ -298,7 +318,7 @@ def test_zenith_groups_match_the_unsplit_solve(nzen):
         sizes.append(u0_group.shape[0])
         return ts.two_stream_solar_multi(*tt[:3], u0_group, tt[4])
 
-    got = tc._zenith_groups(solve, tt[3])
+    got = tc._zenith_groups(solve, tt[3], size=8)
     assert sizes == [8] * (nzen // 8) + [nzen % 8] * (nzen % 8 > 0)
     assert got[0].shape == (nzen, B, nz + 1) and got[1].shape == (nzen, B)
     _close(got, [x.numpy() for x in ts.two_stream_solar_multi(*tt)], 1e-13, 0.0)
