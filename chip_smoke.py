@@ -8,9 +8,7 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    fails without a CUDA device (there is no CPU path);
 2. build: the CUDA kernels from clima_tpu_torch/csrc/, one nvcc per source,
    started together, with build seconds and ptxas's registers, stack and
-   spills for each kernel instance; fails if an instance of the RORR kernel,
-   of either weighted two-stream kernel or of the unreduced multi-zenith
-   solar kernel spills;
+   spills for each kernel instance; fails if any instance spills;
 3. each kernel against its plain PyTorch twin on the card, float64:
    a. the weight-fused kernels of the radtran path at the flagship shapes
       (IR two-stream with hard and soft surface and a thin layer, timed, and
@@ -32,7 +30,9 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
       peak memory, checked against the unchunked sort path on its first
       lanes;
    b. the unreduced kernels through their dispatchers
-      ``two_stream_{ir,solar_multi,solar}_auto`` at the shapes of the JAX
+      ``two_stream_{ir,solar_multi,solar}_auto`` (the weighted IR kernel
+      with one gauss point of weight 1, the unreduced multi-zenith and
+      single-zenith solar kernels) at the shapes of the JAX
       package's roofline entry point (scripts/roofline.py: rows = 256*60*8,
       nz = 202, the 4 Gauss zenith cosines shared by all rows, or cycled
       over the rows for the single-zenith kernel; IR with a hard and a soft
@@ -179,7 +179,7 @@ KERNELS = {
         source="clima_tpu_torch/csrc/rorr.cu",
         replaces="clima_tpu/ops/pallas_rorr.py:145"),
     "two_stream_ir": dict(
-        wrapper=twostream_cuda.two_stream_ir_auto, kernel="twostream_kernel",
+        wrapper=twostream_cuda.two_stream_ir_auto, kernel="ir_weighted_kernel, nG = 1",
         source="clima_tpu_torch/csrc/twostream.cu",
         replaces="clima_tpu/ops/pallas_twostream.py:303"),
     "two_stream_solar_multi": dict(
@@ -187,7 +187,7 @@ KERNELS = {
         source="clima_tpu_torch/csrc/twostream.cu",
         replaces="clima_tpu/ops/pallas_twostream.py:107"),
     "two_stream_solar": dict(
-        wrapper=twostream_cuda.two_stream_solar_auto, kernel="twostream_kernel",
+        wrapper=twostream_cuda.two_stream_solar_auto, kernel="solar_single_kernel",
         source="clima_tpu_torch/csrc/twostream.cu",
         replaces="clima_tpu/ops/pallas_twostream.py:68"),
 }
@@ -319,8 +319,7 @@ def phase_build():
             elif "registers" in line or "spill" in line:
                 print("     ", line.strip())
                 stores = re.search(r"(\d+) bytes spill stores", line)
-                checked = name == "rorr" or "weighted_kernel" in fn or "solar_rows_kernel" in fn
-                if checked and stores and int(stores.group(1)) > 0:
+                if stores and int(stores.group(1)) > 0:
                     spills.append(fn)
     if spills:
         raise AssertionError(f"kernel instances spill to local memory: {sorted(set(spills))}")
@@ -910,7 +909,7 @@ def phase_radtran_path(device, B=B_COLS, K=K_INNER, nz_template=NZ_TEMPLATE, rep
         print("  profiler: no device time recorded (not measured)")
     else:
         groups = {"RORR": ("rorr_chain",),
-                  "two-stream": ("twostream", "solar_weighted_kernel", "ir_weighted_kernel")}
+                  "two-stream": ("solar_weighted_kernel", "ir_weighted_kernel")}
         shares = {g: sum(ms for name, ms in times.items() if any(k in name for k in keys))
                   for g, keys in groups.items()}
         shares["other"] = busy - sum(shares.values())

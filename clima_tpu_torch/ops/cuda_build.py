@@ -35,11 +35,9 @@ _SIGNATURES = {
     "twostream": {
         "clima_twostream_weighted": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _LL,
                                      _I, _I, _D, _P, _P, _P, _P, _P],
-        "clima_twostream_rows": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _D,
-                                 _P, _P, _P, _P, _P, _P],
         "clima_twostream_solar_max_group": [_I, _I],
-        "clima_twostream_solar_multi": [_I, _P, _P, _P, _P, _P, _I, _LL, _I, _P, _P, _P, _P, _P,
-                                        _P],
+        "clima_twostream_solar_multi": [_I, _I, _P, _P, _P, _P, _P, _I, _LL, _I, _P, _P, _P, _P,
+                                        _P, _P],
     },
     "rorr": {"clima_rorr_chain": [_I, _I, _I, _LL, _P, _P, _P, _P, _P]},
 }

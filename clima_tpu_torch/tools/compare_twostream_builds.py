@@ -14,12 +14,16 @@ build then runs, through the port's wrappers,
 - the weighted solar kernel (#2) at the radtran path's shape (65536 rows x
   202 layers, nG 8, the 4 Gauss zenith cosines, amean on), float64;
 - the unreduced kernels (#4-#6) at the roofline shapes (122880 rows x 202
-  layers, the inputs of chip_smoke.py's phase 3b), #5 at 4 and 12 zenith
-  angles.
-A build whose library predates the multi-zenith solar entry point
-(``clima_twostream_solar_multi``) runs #5 on its row template's shared-zenith
-instances instead, as the wrapper of its day did: groups of at most 8 zenith
-angles, one launch each, joined along the zenith axis.
+  layers, the inputs of chip_smoke.py's phase 3b), #4 with a hard and a soft
+  surface, #5 at 4 and 12 zenith angles, and beside #4 the weighted IR
+  kernel at nG = 1 on #4's inputs, called as #1 with wbin = [1] (the
+  unreduced fluxes but for the sign of a zero), whatever route the build's
+  #4 takes.
+A build whose library still has the thread-per-row template's entry point
+(``clima_twostream_rows``, before the unreduced IR and single-zenith solar
+solves had kernels of their own) runs #4 and #6 on that template, as the
+wrappers of its day did, and #5 through its ``clima_twostream_solar_multi``,
+which had no per-row flag.
 Every build's outputs are compared bitwise with every other build's, and the
 largest difference from the first build is printed; #1's float64 outputs and
 #2's are also held to the plain twin (rtol 1e-9, atol 1e-12).
@@ -45,6 +49,14 @@ from ..ops import cuda_build, twostream, twostream_cuda
 from ..physics import eqns
 
 _OUT = os.path.join(cuda_build._PKG, "_build", "compare")
+_P, _I, _LL, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
+# the C entry points of a library with the thread-per-row template, where
+# they differ from ops/cuda_build.py's
+_ROW_TEMPLATE_SIGNATURES = {
+    "clima_twostream_rows": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _D, _P, _P, _P,
+                             _P, _P, _P],
+    "clima_twostream_solar_multi": [_I, _P, _P, _P, _P, _P, _I, _LL, _I, _P, _P, _P, _P, _P, _P],
+}
 
 
 def build(name, path):
@@ -59,7 +71,10 @@ def build(name, path):
         raise RuntimeError(f"nvcc failed on {path}:\n{log}")
     lib = ctypes.CDLL(out)
     fns = {}
-    for fname, argtypes in cuda_build._SIGNATURES["twostream"].items():
+    signatures = dict(cuda_build._SIGNATURES["twostream"])
+    if hasattr(lib, "clima_twostream_rows"):
+        signatures.update(_ROW_TEMPLATE_SIGNATURES)
+    for fname, argtypes in signatures.items():
         if hasattr(lib, fname):
             fn = getattr(lib, fname)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
@@ -73,51 +88,74 @@ def build(name, path):
     return fns, lines
 
 
-def _row_template_solar_multi(fns):
-    """``twostream_cuda._launch_solar_multi`` for a library that predates
-    ``clima_twostream_solar_multi``, as the wrapper of its day launched #5:
-    the row template's shared-zenith instances (``clima_twostream_rows`` with
-    u0_per_row = 0) on groups of at most 8 zenith angles, each with its own
-    (nz, 2 + 2 NR, rows) scratch (NR 4 up to 4 zenith angles, else 8) and
-    outputs, joined along the zenith axis."""
-    rows_fn = fns["clima_twostream_rows"]
+def _row_template_launchers(fns):
+    """``twostream_cuda._launch_ir_rows`` and ``_launch_solar_multi`` for a
+    library with the thread-per-row template (``clima_twostream_rows``): #4
+    and #6 on the template, with its (nz, 4, rows) scratch, and #5 through
+    the template-era ``clima_twostream_solar_multi``, which took no per-row
+    flag."""
+    rows_fn, multi_fn = fns["clima_twostream_rows"], fns["clima_twostream_solar_multi"]
 
-    def launch(tau, w0, gt, u0s, Rsfc):
+    def ir_rows(tau, w0, gt, emissivity, bplanck, hard, tau_min):
         rows, nz = tau.shape
         kw = dict(dtype=tau.dtype, device=tau.device)
+        scratch = torch.empty((nz, 4, rows), **kw)
+        fup, fdn = (torch.empty((rows, nz + 1), **kw) for _ in range(2))
+        _status(rows_fn(int(tau.dtype == torch.float64), 0, 0, tau.data_ptr(), w0.data_ptr(),
+                        gt.data_ptr(), emissivity.data_ptr(), bplanck.data_ptr(), None, 1, rows,
+                        nz, int(hard), float(tau_min), scratch.data_ptr(), None, fup.data_ptr(),
+                        fdn.data_ptr(), None, _stream(tau)))
+        return fup, fdn
 
-        def group(u0):
-            nzen = u0.shape[0]
-            scratch = torch.empty((nz, 2 + 2 * (4 if nzen <= 4 else 8), rows), **kw)
-            am, fup, fdn = (torch.empty((nzen, rows, nz + 1), **kw) for _ in range(3))
-            srad = torch.empty((nzen, rows), **kw)
-            status = rows_fn(int(tau.dtype == torch.float64), 1, 0, tau.data_ptr(),
+    def solar_multi(tau, w0, gt, u0s, Rsfc, per_row=False):
+        rows, nz = tau.shape
+        nzen = 1 if per_row else u0s.shape[0]
+        kw = dict(dtype=tau.dtype, device=tau.device)
+        am, fup, fdn = (torch.empty((nzen, rows, nz + 1), **kw) for _ in range(3))
+        srad = torch.empty((nzen, rows), **kw)
+        if per_row:
+            scratch = torch.empty((nz, 4, rows), **kw)
+            status = rows_fn(int(tau.dtype == torch.float64), 1, 1, tau.data_ptr(),
                              w0.data_ptr(), gt.data_ptr(), Rsfc.data_ptr(), None,
-                             u0.data_ptr(), nzen, rows, nz, 0, 0.0, scratch.data_ptr(),
+                             u0s.data_ptr(), 1, rows, nz, 0, 0.0, scratch.data_ptr(),
                              am.data_ptr(), fup.data_ptr(), fdn.data_ptr(), srad.data_ptr(),
-                             torch.cuda.current_stream(tau.device).cuda_stream)
-            if status != 0:
-                raise RuntimeError(f"two-stream kernel launch failed: CUDA error {status}")
-            return am, srad, fup, fdn
+                             _stream(tau))
+        else:
+            scratch = torch.empty(nz * rows * (3 + 2 * nzen), **kw)
+            status = multi_fn(int(tau.dtype == torch.float64), tau.data_ptr(), w0.data_ptr(),
+                              gt.data_ptr(), Rsfc.data_ptr(), u0s.data_ptr(), nzen, rows, nz,
+                              scratch.data_ptr(), am.data_ptr(), fup.data_ptr(), fdn.data_ptr(),
+                              srad.data_ptr(), _stream(tau))
+        _status(status)
+        return am, srad, fup, fdn
 
-        return twostream_cuda._zenith_groups(group, u0s, 8)
+    return ir_rows, solar_multi
 
-    return launch
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _status(status):
+    if status != 0:
+        raise RuntimeError(f"two-stream kernel launch failed: CUDA error {status}")
 
 
 @contextlib.contextmanager
 def using(fns):
     """The wrappers of ``ops/twostream_cuda.py`` launch the kernels of ``fns``
-    (#5 on the row template where ``fns`` predates its own entry point)."""
-    load, launch = twostream_cuda.load_library, twostream_cuda._launch_solar_multi
+    (#4 and #6 on the thread-per-row template where ``fns`` has it)."""
+    saved = (twostream_cuda.load_library, twostream_cuda._launch_ir_rows,
+             twostream_cuda._launch_solar_multi)
     twostream_cuda.load_library = lambda _name: fns
-    if "clima_twostream_solar_multi" not in fns:
-        twostream_cuda._launch_solar_multi = _row_template_solar_multi(fns)
+    if "clima_twostream_rows" in fns:
+        twostream_cuda._launch_ir_rows, twostream_cuda._launch_solar_multi = \
+            _row_template_launchers(fns)
     try:
         yield
     finally:
-        twostream_cuda.load_library = load
-        twostream_cuda._launch_solar_multi = launch
+        (twostream_cuda.load_library, twostream_cuda._launch_ir_rows,
+         twostream_cuda._launch_solar_multi) = saved
 
 
 def event_ms(fn, reps):
@@ -210,9 +248,14 @@ def main(argv=None):
     ang12, _ = eqns.zenith_angles_and_weights(12)
     u0s12 = torch.tensor(np.cos(ang12 * np.pi / 180.0), device=dev)
     rs = 0.6 * rand(rows)
+    one = torch.ones(1, dtype=torch.float64, device=dev)
     wrappers = {
-        "#4 two_stream_ir_auto": lambda: twostream_cuda.two_stream_ir_auto(
+        "#4 two_stream_ir_auto, hard surface": lambda: twostream_cuda.two_stream_ir_auto(
             tau, w0, gt, emis, True, 1e-6, bpl),
+        "#4 two_stream_ir_auto, soft surface": lambda: twostream_cuda.two_stream_ir_auto(
+            tau, w0, gt, emis, False, 1e-6, bpl),
+        "#4 baseline: #1 at nG = 1, hard surface": lambda: (
+            twostream_cuda.two_stream_ir_weighted_cuda(tau, w0, gt, emis, True, 1e-6, bpl, one)),
         "#5 two_stream_solar_multi_auto": lambda: twostream_cuda.two_stream_solar_multi_auto(
             tau, w0, gt, u0s, rs),
         "#5 two_stream_solar_multi_auto, 12 zeniths":

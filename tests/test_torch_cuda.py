@@ -250,17 +250,58 @@ def test_rorr_past_nbin_16_runs_on_the_card(dev):
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-12)
 
 
+# (rows, nz) of the unreduced kernels' card tests: rows not a multiple of 32
+# or of a block (128), one layer, odd layer counts, and layer counts around
+# the kernels' 8-layer input tiles and the edges they stage per store (8 for
+# #4; 16 float64, 32 float32 for #6)
+UNREDUCED_SHAPES = [(300, 29), (45, 1), (129, 17), (96, 202), (33, 31)]
+
+
+def _atm_thin(rows, nz, dev, seed, dtype):
+    """Random optical properties in the JAX kernel tests' ranges, with a
+    thin layer (tau 1e-7) at row min(2, rows - 1), layer min(5, nz - 1)."""
+    rng = np.random.default_rng(seed)
+    tau = rng.uniform(1e-6, 2.0, (rows, nz))
+    tau[min(2, rows - 1), min(5, nz - 1)] = 1e-7
+    t = lambda x: torch.tensor(x, dtype=dtype, device=dev)
+    return t(tau), t(rng.uniform(0.02, 0.999, (rows, nz))), t(rng.uniform(0.0, 0.85, (rows, nz)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("rows, nz", UNREDUCED_SHAPES)
 @pytest.mark.parametrize("hard", [True, False])
-def test_ir_auto_kernel_matches_twin(dev, hard):
-    rows, nz = 300, 29
-    tau, w0, gt = _atm(rows, nz, dev, 11)
+def test_ir_auto_kernel_matches_twin(dev, hard, rows, nz, dtype):
+    """The unreduced IR solve (the weighted IR kernel at nG = 1) against the
+    twin and the plain model of its schedule, one launch, two calls bitwise
+    equal. float64:
+    random Planck values, rtol 1e-9. float32: the Planck function of a
+    temperature column, held to the float64 twin on the same inputs, each
+    output within twice the float32 twin's own largest deviation from it or
+    1e-5 of its largest value: per row, the linear-in-tau source of a layer
+    just above tau_min cancels in float32, in the twin alike (ROADMAP Queue
+    3; 1.8e-4 of the largest value at 300 x 29), where a gauss sum would
+    average it out."""
+    tau, w0, gt = _atm_thin(rows, nz, dev, 11 + nz, dtype)
     rng = np.random.default_rng(12)
-    t = lambda x: torch.tensor(x, device=dev)
-    args = (tau, w0, gt, t(rng.uniform(0.8, 1.0, rows)), hard, 1e-6,
-            t(rng.uniform(1e-2, 1.0, (rows, nz + 1))))
+    t = lambda x: torch.tensor(x, dtype=dtype, device=dev)
+    bpl = rng.uniform(1e-2, 1.0, (rows, nz + 1)) if dtype == torch.float64 else \
+        _planck_rows(rows, 1, nz, rng)
+    args = (tau, w0, gt, t(rng.uniform(0.8, 1.0, rows)), hard, 1e-6, t(bpl))
     n = twostream_cuda.two_stream_ir_auto.launches
-    _close(twostream_cuda.two_stream_ir_auto(*args), twostream.two_stream_ir(*args))
+    got = twostream_cuda.two_stream_ir_auto(*args)
     assert twostream_cuda.two_stream_ir_auto.launches == n + 1
+    assert got[0].dtype == dtype and got[0].shape == (rows, nz + 1)
+    again = twostream_cuda.two_stream_ir_auto(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if dtype == torch.float64:
+        _close(got, twostream.two_stream_ir(*args))
+        _close(got, twostream_cuda.ir_rows_schedule_ref(*args))
+        return
+    want = twostream.two_stream_ir(*[a.double() if torch.is_tensor(a) else a for a in args])
+    for g, own, w in zip(got, twostream.two_stream_ir(*args), want):
+        err, own_err = (g.double() - w).abs().max(), (own.double() - w).abs().max()
+        assert bool(torch.isfinite(g).all())
+        assert err <= max(2.0 * own_err, 1e-5 * w.abs().max()), (float(err), float(own_err))
 
 
 @pytest.mark.parametrize("nzen", [1, 4, 7, 9, 12, 16, 33])
@@ -304,12 +345,10 @@ def test_solar_multi_auto_kernel_matches_schedule_ref(dev, nz, dtype):
     close(got, twostream.two_stream_solar_multi(*args))
 
 
-def test_solar_multi_auto_matches_the_parent_build(dev):
-    """#5 built from this checkout and from the parent commit's
-    csrc/twostream.cu (its path in TWOSTREAM_PARENT_SOURCE; the parent ran
-    the row template, 4 zenith angles in one launch) on the same inputs:
-    bitwise equal, or the largest difference printed and within rtol 1e-9,
-    atol 1e-12."""
+@pytest.fixture(scope="module")
+def parent_build():
+    """The parent commit's csrc/twostream.cu (its path in
+    TWOSTREAM_PARENT_SOURCE), built once: its entry points."""
     import os
 
     from clima_tpu_torch.tools import compare_twostream_builds as builds
@@ -317,29 +356,82 @@ def test_solar_multi_auto_matches_the_parent_build(dev):
     parent = os.environ.get("TWOSTREAM_PARENT_SOURCE")
     if not parent:
         pytest.skip("set TWOSTREAM_PARENT_SOURCE to the parent commit's csrc/twostream.cu")
-    rows, nz = 1000, 61
-    tau, w0, gt = _atm(rows, nz, dev, 23)
-    rng = np.random.default_rng(24)
-    t = lambda x: torch.tensor(x, device=dev)
-    args = (tau, w0, gt, t(rng.uniform(0.2, 1.0, 4)), t(rng.uniform(0.0, 0.6, rows)))
-    old, _ = builds.build("parent", parent)
-    with builds.using(old):
-        want = twostream_cuda.two_stream_solar_multi_auto(*args)
-    got = twostream_cuda.two_stream_solar_multi_auto(*args)
+    return builds.build("parent", parent)[0]
+
+
+def _against_parent(parent_build, wrapper, args):
+    """``wrapper(*args)`` built from this checkout and from the parent
+    commit: bitwise equal, or the largest difference printed and within rtol
+    1e-9, atol 1e-12."""
+    from clima_tpu_torch.tools import compare_twostream_builds as builds
+
+    with builds.using(parent_build):
+        want = wrapper(*args)
+    got = wrapper(*args)
     diff = max(float((g - w).abs().max()) for g, w in zip(got, want))
     print(f"largest difference from the parent build: {diff:.3e}")
     if diff > 0:
         _close(got, want)
 
 
-def test_solar_auto_kernel_matches_twin(dev):
-    """One zenith cosine per row."""
-    rows, nz = 300, 37
-    tau, w0, gt = _atm(rows, nz, dev, 15)
-    rng = np.random.default_rng(16)
+def test_solar_multi_auto_matches_the_parent_build(dev, parent_build):
+    """#5 from this checkout and from the parent commit, 4 zenith angles in
+    one launch, on the same inputs."""
+    rows, nz = 1000, 61
+    tau, w0, gt = _atm(rows, nz, dev, 23)
+    rng = np.random.default_rng(24)
     t = lambda x: torch.tensor(x, device=dev)
-    args = (tau, w0, gt, t(rng.uniform(0.2, 1.0, rows)), t(rng.uniform(0.0, 0.6, rows)))
-    _close(twostream_cuda.two_stream_solar_auto(*args), twostream.two_stream_solar(*args))
+    args = (tau, w0, gt, t(rng.uniform(0.2, 1.0, 4)), t(rng.uniform(0.0, 0.6, rows)))
+    _against_parent(parent_build, twostream_cuda.two_stream_solar_multi_auto, args)
+
+
+@pytest.mark.parametrize("hard", [True, False])
+def test_ir_auto_matches_the_parent_build(dev, parent_build, hard):
+    """#4 from this checkout and from the parent commit (the thread-per-row
+    template, where the build still has it) on the same inputs."""
+    rows, nz = 1000, 61
+    tau, w0, gt = _atm(rows, nz, dev, 25)
+    rng = np.random.default_rng(26)
+    t = lambda x: torch.tensor(x, device=dev)
+    args = (tau, w0, gt, t(rng.uniform(0.8, 1.0, rows)), hard, 1e-6,
+            t(rng.uniform(1e-2, 1.0, (rows, nz + 1))))
+    _against_parent(parent_build, twostream_cuda.two_stream_ir_auto, args)
+
+
+def test_solar_auto_matches_the_parent_build(dev, parent_build):
+    """#6 from this checkout and from the parent commit (the thread-per-row
+    template, where the build still has it) on the same inputs, one zenith
+    cosine per row off the resonance."""
+    rows, nz = 1000, 61
+    tau, w0, gt = _atm(rows, nz, dev, 27)
+    rng = np.random.default_rng(28)
+    t = lambda x: torch.tensor(x, device=dev)
+    args = (tau, w0, gt, t(rng.uniform(0.2, 0.55, rows)), t(rng.uniform(0.0, 0.6, rows)))
+    _against_parent(parent_build, twostream_cuda.two_stream_solar_auto, args)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("rows, nz", UNREDUCED_SHAPES)
+def test_solar_auto_kernel_matches_twin(dev, rows, nz, dtype):
+    """The single-zenith solar kernel (one zenith cosine per row) against the
+    twin and the plain model of its schedule, one launch, two calls bitwise
+    equal. The cosines vary per row below 3**-0.5, away from the lam^2 =
+    1/u0^2 resonance of the solar source. float64 at rtol 1e-9, float32 at
+    1e-4 of the largest value."""
+    tau, w0, gt = _atm_thin(rows, nz, dev, 15 + nz, dtype)
+    rng = np.random.default_rng(16)
+    t = lambda x: torch.tensor(x, dtype=dtype, device=dev)
+    args = (tau, w0, gt, t(rng.uniform(0.2, 0.55, rows)), t(rng.uniform(0.0, 0.6, rows)))
+    n = twostream_cuda.two_stream_solar_auto.launches
+    got = twostream_cuda.two_stream_solar_auto(*args)
+    assert twostream_cuda.two_stream_solar_auto.launches == n + 1
+    assert got[0].shape == (rows, nz + 1) and got[1].shape == (rows,)
+    assert got[2].dtype == dtype
+    again = twostream_cuda.two_stream_solar_auto(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    close = _close if dtype == torch.float64 else _close_f32
+    close(got, twostream.two_stream_solar(*args))
+    close(got, twostream_cuda.solar_rows_schedule_ref(*args, per_row=True))
 
 
 def test_adiabat_climate_on_the_card_matches_the_cpu(dev):

@@ -2,8 +2,9 @@
 the XLA-path twins at rtol 1e-12 (same math), the Pallas kernels in
 interpret mode at rtol 1e-9 / atol 1e-12 (the JAX tests' own bound), the
 plain models of the weighted IR and solar kernels' schedules at that bound
-and of the unreduced multi-zenith solar kernel's at rtol 1e-10, the zenith
-grouping of the kernel wrappers, and their CPU dispatch."""
+and of the unreduced kernels' (IR, solar with shared zenith cosines and with
+one per row) at rtol 1e-10, the zenith grouping of the kernel wrappers, and
+their CPU dispatch."""
 
 import functools
 from unittest import mock
@@ -300,6 +301,41 @@ def test_solar_auto_matches_pallas_kernel(interpret):
     kern = pts.two_stream_solar_pallas(*J(tau, w0, gt, u0, rs), block_b=8)
     got = tc.two_stream_solar_auto(*T(tau, w0, gt, u0, rs))
     assert got[1].shape == (B,) and got[3].shape == (B, nz + 1)
+    _close(got, kern, 1e-10, ATOL_KERNEL)
+
+
+@pytest.mark.parametrize("hard", [True, False])
+def test_ir_rows_schedule_ref_matches_pallas_kernel(interpret, hard):
+    """The plain model of the IR kernel's unreduced schedule (a thread per
+    row, back substitution fused with the edge fluxes, the weighted IR
+    kernel's forward and backward passes) against the unreduced IR Pallas
+    kernel in interpret mode, a thin layer included."""
+    B, nz = 24, 17
+    tau, w0, gt = _atm(B, nz, seed=60)
+    tau[4, 3] = 1e-7
+    rng = np.random.default_rng(61)
+    emis, bpl = rng.uniform(0.8, 1.0, B), rng.uniform(1e-2, 1.0, (B, nz + 1))
+    tt, jj = T(tau, w0, gt, emis, bpl), J(tau, w0, gt, emis, bpl)
+    kern = pts.two_stream_ir_pallas(*jj[:4], hard, 1e-6, jj[4], block_b=8)
+    got = tc.ir_rows_schedule_ref(*tt[:4], hard, 1e-6, tt[4])
+    assert got[0].shape == (B, nz + 1) and got[1].shape == (B, nz + 1)
+    _close(got, kern, 1e-10, ATOL_KERNEL)
+
+
+def test_solar_rows_schedule_ref_per_row_matches_pallas_kernel(interpret):
+    """The plain model of the unreduced solar kernel's schedule with one
+    zenith cosine per row against the single-zenith Pallas kernel in
+    interpret mode, surface radiance and a thin layer included. The cosines
+    vary per row below 3**-0.5, away from the resonance of the solar
+    source."""
+    B, nz = 16, 23
+    tau, w0, gt = _atm(B, nz, seed=62)
+    tau[5, 7] = 1e-7
+    rng = np.random.default_rng(63)
+    u0, rs = rng.uniform(0.2, 0.55, B), rng.uniform(0.0, 0.6, B)
+    kern = pts.two_stream_solar_pallas(*J(tau, w0, gt, u0, rs), block_b=8)
+    got = tc.solar_rows_schedule_ref(*T(tau, w0, gt, u0, rs), per_row=True)
+    assert got[1].shape == (B,) and got[0].shape == (B, nz + 1)
     _close(got, kern, 1e-10, ATOL_KERNEL)
 
 
