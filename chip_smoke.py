@@ -114,13 +114,29 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    Jacobians, the time split (march, altitude, radiative transfer, the
    Jacobian's IR batches, the host rest), the marches by batch size, the
    graph captures, peak memory, and each kernel's time and bound at the
-   path's largest shape.
+   path's largest shape;
+9. the Climate path: ``Climate`` with tests/test_climate.py's settings and
+   atmosphere column at nz=50, 4 zenith angles, from T_init over
+   logspace(4, 6, 10) s (examples/climate_evolve.py): ``evolve`` with
+   DOP853 (host scipy, each RHS one radiative transfer through the facade)
+   and with rk45_device (the state on the card), both at rtol 1e-7 and held
+   to each other (T rtol 1e-4, atol 1e-3), then DOP853 at the model's
+   default tolerances, its gap printed; every field of every stream finite,
+   each kernel launched in each evolve and no twin called. Each kernel
+   against its twin on the path's last inputs at each shape (one column,
+   the 10-snapshot batch), timed with its bound; a CPU process of the port
+   evaluates ``right_hand_side`` and ``fluxes_fn`` at the last three
+   snapshots (dT/dt rtol 1e-9 with a per-layer atol of a 1e-12 flux error,
+   fluxes 1e-9 of each array's largest value). Reports each evolve's RHS
+   evaluations, attempted/accepted/rejected steps, seconds and ms per RHS,
+   one RHS split into radiative transfer and the rest, one profiler pass
+   over an RHS, and peak memory.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; the kernels of a path must each have launched. The
 second-to-last line is a JSON object with each kernel's numbers (its
-launches summed over the radtran, adiabat, RCE, solver and device RCE
-paths); the last line is the device JSON.
+launches summed over the radtran, adiabat, RCE, solver, device RCE and
+Climate paths); the last line is the device JSON.
 """
 
 import collections
@@ -130,9 +146,11 @@ import json
 import multiprocessing
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import warnings
@@ -140,13 +158,19 @@ from unittest import mock
 
 import numpy as np
 import torch
+import yaml
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from clima_tpu_torch import constants  # noqa: E402
 from clima_tpu_torch.adiabat import AdiabatClimate, rce, rce_device  # noqa: E402
 from clima_tpu_torch.adiabat import profile as adiabat_profile  # noqa: E402
-from clima_tpu_torch.config import species_from_dict  # noqa: E402
-from clima_tpu_torch.data import make_template  # noqa: E402
+from clima_tpu_torch.climate import Climate, load_evolve_file  # noqa: E402
+from clima_tpu_torch.climate.climate import CP_GROUND, DZ_GROUND, RHO_GROUND  # noqa: E402
+from clima_tpu_torch.config import settings_from_dict, species_from_dict  # noqa: E402
+from clima_tpu_torch.config.species import heat_capacity  # noqa: E402
+from clima_tpu_torch.data import (climate_settings_yaml_text, make_template,  # noqa: E402
+                                  write_atmosphere_file)
 from clima_tpu_torch.ops import cuda_build, rorr_cuda, twostream, twostream_cuda  # noqa: E402
 from clima_tpu_torch.ops.cuda_graph import CAPTURE_SECONDS, CAPTURES  # noqa: E402
 from clima_tpu_torch.ops.rorr import k_rorr_mix  # noqa: E402
@@ -1696,6 +1720,237 @@ def _device_rce_on_card(device, smi, conn, st):
     print(f"  phase 8: {time.perf_counter() - t_phase:.1f} s")
     return launches
 
+CLIMATE_NZ = 50  # ModernEarth's 50 layers; nz_r = 100 (no ghost layers)
+CLIMATE_T_EVAL = np.logspace(4.0, 6.0, 10)  # examples/climate_evolve.py:92
+# the integrators' (rtol, atol) for the checked pair of runs. At the
+# model's default (1e-4, 1e-6), and for DOP853 still at 1e-6, the two take
+# different paths through the convective onset near 4e5 s, where the RHS is
+# not smooth (eddy_for_heat's regimes), and part by up to ~0.25 K there; at
+# 1e-7 both stay within ~1e-3 K of each other, and take fewer steps
+# (fewer rejected at the stability limit) than at the default
+CLIMATE_TIGHT = (1.0e-7, 1.0e-9)
+# the flux roundoff that dT/dt is held to across devices, as a share of the
+# largest channel flux (see climate_tendency_atol)
+CLIMATE_EPS_FLUX = 1e-12
+
+
+def _climate_model(device, atmosphere):
+    """Phase 9's model: tests/test_climate.py's settings and atmosphere
+    column; species, star and data from the in-memory template."""
+    tpl = make_template(nz=CLIMATE_NZ, n_zenith=N_ZEN)
+    text = climate_settings_yaml_text(nz=CLIMATE_NZ, n_zenith=N_ZEN)
+    settings = settings_from_dict(yaml.safe_load(text), "<climate settings>")
+    c = Climate(tpl["species"], settings, tpl["star"], atmosphere, tpl["datadir"],
+                device=device)
+    c.verbose = False
+    return c
+
+
+def _climate_at(c, states):
+    """right_hand_side at each state (n, neq), the hydrostatic pressure
+    frozen at T_init, and fluxes_fn over all states in one call; host
+    float64."""
+    c._P = None
+    c.right_hand_side(c.T_init)
+    dTdt = np.stack([c.right_hand_side(y) for y in states])
+    _, fluxes_fn = c._build_device_fns(T_freeze=c.T_init)
+    y = c._t(states)
+    return dTdt, [a.cpu().numpy() for a in fluxes_fn(y[:, 0], y[:, 1:])]
+
+
+def climate_tendency_atol(c, states, fluxes):
+    """Per entry of dT/dt at each state, the tendency that a flux error of
+    CLIMATE_EPS_FLUX of the state's largest channel flux would make: twice
+    that error (dF/dz takes two edges) over the layer's rho * cp * dz, or the
+    ground slab's. The fluxes of the kernels and of their CPU twins differ
+    by ~1e-14 of that scale; dT/dt = dF/dz / (rho cp) amplifies it by
+    1 / (rho cp dz), most in the thin top layers."""
+    col = c._column()
+    T = c._t(states[:, 1:])
+    cp = torch.sum(heat_capacity(col["thermo"], T) * col["mix"], dim=-1) \
+        * (1.0 / (col["mubar"] * 1.0e-3)) * 1.0e4
+    rho = c._t(c._density) * (1.0 / constants.N_avo) * col["mubar"]
+    per_volume = torch.cat([torch.full_like(cp[:, :1], RHO_GROUND * CP_GROUND * DZ_GROUND),
+                            rho * cp * col["dz"]], dim=1)
+    F = np.max([np.abs(a).max(axis=1) for a in fluxes[1:]], axis=0)
+    return 2.0 * CLIMATE_EPS_FLUX * torch.tensor(F)[:, None] / per_volume.cpu()
+
+
+def _cpu_climate_at(conn):
+    """Child process: the port on the CPU. Receives the atmosphere file and
+    builds phase 9's model, then receives the card's snapshot states and
+    sends back (dT/dt, fluxes, seconds, error) from :func:`_climate_at`."""
+    try:
+        torch.set_num_threads(2)
+        c = _climate_model("cpu", conn.recv())
+        states = conn.recv()
+        t0 = time.perf_counter()
+        dTdt, fluxes = _climate_at(c, states)
+        conn.send((dTdt, fluxes, time.perf_counter() - t0, None))
+    except EOFError:  # the card's side ended before sending its states
+        pass
+    except Exception as e:  # reported to the parent, which raises
+        conn.send((None, None, None, repr(e)))
+    finally:
+        conn.close()
+
+
+@contextlib.contextmanager
+def no_twins():
+    """The three kernels' plain twins raise if anything calls them."""
+    def refuse(name):
+        def run(*args, **kwargs):
+            raise AssertionError(f"the twin {name} ran on the card's path")
+        return run
+
+    with mock.patch.object(twostream, "two_stream_ir_weighted",
+                           refuse("two_stream_ir_weighted")), \
+            mock.patch.object(twostream, "two_stream_solar_multi_weighted",
+                              refuse("two_stream_solar_multi_weighted")), \
+            mock.patch.object(rorr_cuda, "k_rorr_mix", refuse("k_rorr_mix")):
+        yield
+
+
+def phase_climate_path(device, smi):
+    print(f"== phase 9: the Climate path (Climate.evolve, DOP853 and rk45_device: "
+          f"nz={CLIMATE_NZ}, {N_ZEN} zenith angles, t_eval {len(CLIMATE_T_EVAL)} times "
+          f"log-spaced {CLIMATE_T_EVAL[0]:g}-{CLIMATE_T_EVAL[-1]:g} s, float64)")
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_climate_")
+    atmosphere = os.path.join(workdir, "atmosphere.txt")
+    write_atmosphere_file(atmosphere)
+    ctx = multiprocessing.get_context("spawn")
+    conn, child_conn = ctx.Pipe()
+    child = ctx.Process(target=_cpu_climate_at, args=(child_conn,))
+    child.start()
+    child_conn.close()
+    try:
+        conn.send(atmosphere)
+        return _climate_on_card(device, smi, conn, atmosphere, workdir)
+    finally:
+        conn.close()
+        child.join(timeout=600)
+        shutil.rmtree(workdir, ignore_errors=True)
+        if child.is_alive():
+            child.terminate()
+            child.join()
+            raise AssertionError("the CPU evaluation of the Climate RHS did not finish in 600 s")
+
+
+def _climate_on_card(device, smi, conn, atmosphere, workdir):
+    t_phase = time.perf_counter()
+    c = _climate_model(None, atmosphere)
+    assert c.device.type == "cuda"
+    print(f"  model built in {time.perf_counter() - t_phase:.2f} s: nz {c.nz}, nz_r {c.nz_r}, "
+          f"{c.rad.ir.nw} IR + {c.rad.sol.nw} solar bins, {c.rad.op.kset.nbin} gauss points")
+
+    # both integrators at CLIMATE_TIGHT, held to each other, then evolve's
+    # defaults (DOP853 at the model's tolerances), whose gap is reported
+    defaults = (c.rtol, c.atol)
+    runs = [(method, CLIMATE_TIGHT) for method in ("DOP853", "rk45_device")]
+    runs.append(("DOP853", defaults))
+    last, streams = {}, {}
+    torch.cuda.reset_peak_memory_stats(device)
+    _reset(RADTRAN_KERNELS)
+    for method, (rtol, atol) in runs:
+        before = _launches(RADTRAN_KERNELS)
+        fn = os.path.join(workdir, f"{method}_{rtol}.npz")
+        c.rtol, c.atol = rtol, atol
+        sync(device)
+        t0 = time.perf_counter()
+        with recording(last), no_twins():
+            ok = c.evolve(fn, 0.0, c.T_init, CLIMATE_T_EVAL, overwrite=True, method=method)
+        sync(device)
+        secs = time.perf_counter() - t0
+        st = c.evolve_stats
+        added = {k: v - before[k] for k, v in _launches(RADTRAN_KERNELS).items()}
+        print(f"  {method} at rtol {rtol:g}, atol {atol:g}: success {ok}, "
+              f"{st['rhs_evaluations']} RHS evaluations, {st['attempted']} steps attempted, "
+              f"{st['accepted']} accepted, {st['rejected']} rejected; {secs:.3f} s ({smi}), "
+              f"{1e3 * secs / st['rhs_evaluations']:.3f} ms per RHS; kernel launches {added}")
+        if not ok:
+            raise AssertionError(f"Climate.evolve({method!r}) did not succeed on the card")
+        if min(added.values()) < 1:
+            raise AssertionError(f"a kernel of the Climate path never launched in {method}: "
+                                 f"{added}")
+        streams[(method, rtol)] = load_evolve_file(fn)
+    c.rtol, c.atol = defaults
+    launches = _launches(RADTRAN_KERNELS)
+    peak = torch.cuda.max_memory_allocated(device)
+    print(f"  kernel launches on the Climate path: {launches}; peak device memory "
+          f"{peak / 2**30:.3f} GiB")
+
+    n_t, neq = len(CLIMATE_T_EVAL), c.neq
+    for (method, rtol), out in streams.items():
+        for k, v in out.items():
+            if not np.isfinite(v).all():
+                raise AssertionError(f"{method} at rtol {rtol:g}: non-finite {k}")
+        if out["T"].shape != (n_t, neq) or out["f_total"].shape != (n_t, c.nz + 1):
+            raise AssertionError(f"{method} at rtol {rtol:g}: unexpected snapshot shapes")
+    host, dev = (streams[(m, CLIMATE_TIGHT[0])]["T"] for m in ("DOP853", "rk45_device"))
+    print(f"  T_surf(t) {np.array2string(host[:, 0], precision=4)} K; max |T(t_end) - T(0)| "
+          f"{np.abs(host[-1] - host[0]).max():.4f} K")
+    gap = np.abs(streams[("DOP853", defaults[0])]["T"] - host).max(axis=1)
+    print(f"  DOP853 at the default tolerances against DOP853 at rtol {CLIMATE_TIGHT[0]:g}: "
+          f"max |dT| per snapshot {np.array2string(gap, precision=3)} K")
+    compare(f"Climate snapshot T at rtol {CLIMATE_TIGHT[0]:g} (rk45_device vs DOP853)",
+            [torch.tensor(dev)], [torch.tensor(host)], rtol=1e-4, atol=1e-3)
+
+    # an RHS split into radiative transfer and the rest, on the card, before
+    # the CPU child starts to compete for the host
+    rhs, fluxes_fn = c._build_device_fns()
+    y = c._t(c.T_init)
+    rhs_ms = median_ms(lambda: rhs(y), device, reps=20)
+    rt_ms = median_ms(lambda: fluxes_fn(y[None, 0], y[None, 1:]), device, reps=20)
+    host_ms = median_ms(lambda: c.right_hand_side(c.T_init), device, reps=20)
+    print(f"  one device RHS {rhs_ms:.3f} ms (median of 20, {smi}): radiative transfer "
+          f"{rt_ms:.3f} ms ({100 * rt_ms / rhs_ms:.1f} %), the rest {rhs_ms - rt_ms:.3f} ms; "
+          f"one host right_hand_side (through the Radtran facade) {host_ms:.3f} ms")
+    times = device_ms_by_kernel(lambda: rhs(y), device)
+    busy = sum(times.values())
+    kernels = {name: sum(ms for k, ms in times.items() if key in k)
+               for name, key in (("#1", "ir_weighted_kernel"), ("#2", "solar_weighted_kernel"),
+                                 ("RORR", "rorr_chain"))}
+    print(f"  profiler, one device RHS: device busy {busy:.3f} ms in {len(times)} kernel names "
+          f"(idle {100 * (1 - busy / rhs_ms):.1f} % of the median RHS); "
+          + ", ".join(f"{k} {ms:.3f} ms" for k, ms in kernels.items())
+          + f", the rest {busy - sum(kernels.values()):.3f} ms")
+
+    # the CPU port evaluates the RHS and fluxes at the last three snapshots
+    # while the card goes on
+    states = dev[-3:]
+    conn.send(states)
+
+    # each kernel against its twin on the last inputs the path gave it, and
+    # its time and bound at each of the path's shapes
+    check_against_twins(last, launches, "the Climate path")
+    nG, nw_ir, nw_sol, nw = c.rad.op.kset.nbin, c.rad.ir.nw, c.rad.sol.nw, c.rad.op.nw
+    per_column = {"two_stream_ir_weighted": nw_ir * nG,
+                  "two_stream_solar_multi_weighted": nw_sol * nG, "k_rorr_mix": nw * c.nz_r}
+    for (name, n), (wrapper, args, kwargs) in sorted(last.items()):
+        cols = n // per_column[name]
+        kernel_ms = event_ms(lambda: wrapper(*args, **kwargs), device, reps=20)
+        bound = path_bounds(c, cols)[name]
+        print(f"  {name} at {n} rows/lanes ({cols} columns): {kernel_ms:.4f} ms a call back to "
+              f"back (20 calls, CUDA events), bound {bound:.6f} ms")
+
+    # the card's RHS and fluxes at those states against the CPU port's
+    dTdt, fluxes = _climate_at(c, states)
+    dTdt_cpu, fluxes_cpu, cpu_s, err = conn.recv()
+    if err is not None:
+        raise AssertionError(f"the CPU evaluation of the Climate RHS failed: {err}")
+    print(f"  CPU port at the card's last 3 snapshots: {cpu_s:.2f} s; card vs CPU dT/dt: "
+          f"max |diff| {np.abs(dTdt - dTdt_cpu).max():.3e} K/s, "
+          f"{np.abs(dTdt - dTdt_cpu).max() / np.abs(dTdt_cpu).max():.3e} of the largest")
+    atol = climate_tendency_atol(c, states, fluxes_cpu)
+    compare("Climate right_hand_side (card vs CPU port, per-layer flux-roundoff atol)",
+            [torch.tensor(dTdt)], [torch.tensor(dTdt_cpu)], atol=atol)
+    for name, g, w in zip(("f_total", "fup_ir", "fdn_ir", "fup_sol", "fdn_sol"), fluxes,
+                          fluxes_cpu):
+        compare(f"Climate fluxes_fn {name} over 3 snapshots (card vs CPU port)",
+                [torch.tensor(g)], [torch.tensor(w)], rtol=0.0, atol=1e-9 * np.abs(w).max())
+    print(f"  phase 9: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
 
 def main():
     t0 = time.perf_counter()
@@ -1706,7 +1961,7 @@ def main():
     paths = [phase_radtran_path(device), phase_adiabat_path(device, smi)]
     rce_launches, rce_state = phase_rce_path(device, smi)
     paths += [rce_launches, phase_solver_path(device, smi),
-              phase_device_rce_path(device, smi, rce_state)]
+              phase_device_rce_path(device, smi, rce_state), phase_climate_path(device, smi)]
     for path in paths:
         for name, n in path.items():
             launches[name] = launches.get(name, 0) + n

@@ -1,4 +1,5 @@
 from .synthetic import (
+    climate_settings_yaml_text,
     create_synthetic_datadir,
     make_template,
     make_template_dir,
@@ -6,9 +7,11 @@ from .synthetic import (
     write_species_yaml,
     write_settings_yaml,
     write_star_file,
+    write_atmosphere_file,
 )
 
 __all__ = [
+    "climate_settings_yaml_text",
     "create_synthetic_datadir",
     "make_template",
     "make_template_dir",
@@ -16,4 +19,5 @@ __all__ = [
     "write_species_yaml",
     "write_settings_yaml",
     "write_star_file",
+    "write_atmosphere_file",
 ]

@@ -331,6 +331,46 @@ def write_settings_yaml(path, **kwargs):
         f.write(settings_yaml_text(**kwargs))
 
 
+def climate_settings_yaml_text(nz=20, n_zenith=1, bottom=0.0, top=0.7e7, surface_pressure=1.013):
+    """Settings of the time-stepping Climate model: a fixed altitude grid
+    from ``bottom`` to ``top`` (cm) and a surface pressure (bar), as in
+    tests/test_climate.py:17-37; a None leaves its entry out."""
+    grid = "".join(f"  {k}: {v}\n" for k, v in (("bottom", bottom), ("top", top))
+                   if v is not None)
+    planet = f"  surface-pressure: {surface_pressure}\n" if surface_pressure is not None else ""
+    return (
+        f"atmosphere-grid:\n{grid}  number-of-layers: {nz}\n\n"
+        f"planet:\n{planet}  planet-mass: 5.972e27\n  planet-radius: 6.371e8\n"
+        f"  surface-albedo: 0.3\n  number-of-zenith-angles: {n_zenith}\n\n"
+        "optical-properties:\n  k-method: RandomOverlapResortRebin\n"
+        "  opacities: {k-distributions: true, CIA: true, rayleigh: true,\n"
+        "    water-continuum: MT_CKD}\n"
+    )
+
+
+def write_atmosphere_file(path):
+    """An Earth-like atmosphere.txt column (tests/test_climate.py:41-59): 25
+    levels to 72 km, a 6.5 K/km lapse rate down to 210 K, an 8 km pressure
+    scale height, water falling off over 2 km and fixed CO2, N2, O2, H2, CH4
+    and CO."""
+    nzf = 25
+    z = np.linspace(0, 7.2e6, nzf)  # cm
+    T = np.maximum(288.0 - 6.5e-5 * z, 210.0)
+    P = 1.013 * np.exp(-z / 8.0e5)
+    den = P * 1e6 / (1.380649e-16 * T)
+    cols = {
+        "alt": z / 1e5, "press": P, "den": den, "temp": T, "eddy": np.zeros(nzf),
+        "H2O": 1e-2 * np.exp(-z / 2e5) + 1e-6, "CO2": np.full(nzf, 400e-6),
+        "N2": np.full(nzf, 0.78), "H2": np.full(nzf, 1e-6),
+        "CH4": np.full(nzf, 1.8e-6), "CO": np.full(nzf, 1e-7),
+        "O2": np.full(nzf, 0.21),
+    }
+    with open(path, "w") as f:
+        f.write(" ".join(f"{k:>15}" for k in cols) + "\n")
+        for i in range(nzf):
+            f.write(" ".join(f"{cols[k][i]:15.7e}" for k in cols) + "\n")
+
+
 def star_table(Teff=5772.0, total_flux_wm2=1361.0):
     """Blackbody stellar spectrum scaled to the given bolometric flux.
 

@@ -687,3 +687,103 @@ def test_batched_solve_on_the_card_matches_the_cpu(solver_models, name):
         assert torch.equal(got[k].cpu(), want[k]), k
     if name.startswith("surface_temperature"):
         assert min(launched) >= 1, launched
+
+
+@pytest.fixture(scope="module")
+def climate_models(tmp_path_factory):
+    """The time-stepping Climate model at nz=12, 2 zenith angles
+    (tests/test_climate.py's settings and atmosphere column), on the card and
+    on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import yaml
+
+    from clima_tpu_torch.climate import Climate
+    from clima_tpu_torch.config import settings_from_dict
+    from clima_tpu_torch.data import climate_settings_yaml_text, write_atmosphere_file
+
+    atmosphere = str(tmp_path_factory.mktemp("climate") / "atmosphere.txt")
+    write_atmosphere_file(atmosphere)
+    tpl = make_template(nz=12, n_zenith=2)
+    settings = settings_from_dict(yaml.safe_load(climate_settings_yaml_text(12, 2)))
+    files = (tpl["species"], settings, tpl["star"], atmosphere, tpl["datadir"])
+    gpu, cpu = Climate(*files), Climate(*files, device="cpu")
+    assert gpu.device.type == "cuda"
+    gpu.verbose = cpu.verbose = False
+    return gpu, cpu
+
+
+def _climate_states(c):
+    """T_init, a perturbed state and a superadiabatic one (convection from
+    the ground into the first layer and on into the second)."""
+    convective = c.T_init.copy()
+    convective[0] += 45.0
+    convective[2] = convective[1] - 85.0
+    return np.stack([c.T_init, c.T_init * (1.0 + 0.01 * np.sin(np.arange(c.neq))), convective])
+
+
+def test_climate_rhs_on_the_card_matches_the_cpu(climate_models):
+    """right_hand_side and the device RHS on the card (RORR, #1 and #2, each
+    of which must launch, and no twin) against the port on the CPU: rtol
+    1e-9, with chip_smoke.py's per-layer atol for the kernels' flux roundoff
+    (1e-12 of the flux scale over rho cp dz)."""
+    from chip_smoke import climate_tendency_atol, no_twins
+
+    gpu, cpu = climate_models
+    states = _climate_states(cpu)
+    before = [w.launches for w in KERNEL_WRAPPERS]
+    with no_twins():
+        gpu._P = None
+        got = np.stack([gpu.right_hand_side(y) for y in states])
+        rhs, fluxes_fn = gpu._build_device_fns(T_freeze=states[1])
+        got_dev = np.stack([rhs(gpu._t(y)).cpu().numpy() for y in states])
+    assert min(w.launches - n for w, n in zip(KERNEL_WRAPPERS, before)) >= 1
+    cpu._P = None
+    want = np.stack([cpu.right_hand_side(y) for y in states])
+    rhs_cpu, fluxes_cpu = cpu._build_device_fns(T_freeze=states[1])
+    want_dev = np.stack([rhs_cpu(cpu._t(y)).numpy() for y in states])
+    np.testing.assert_allclose(gpu._P, cpu._P, rtol=1e-14)
+    y = cpu._t(states)
+    fluxes = [a.numpy() for a in fluxes_cpu(y[:, 0], y[:, 1:])]
+    atol = climate_tendency_atol(cpu, states, fluxes).numpy()
+    for g, w in ((got, want), (got_dev, want_dev)):
+        assert np.all(np.abs(g - w) <= atol + 1e-9 * np.abs(w)), np.abs(g - w) / atol
+
+
+def test_climate_rk45_device_on_the_card_matches_the_cpu(climate_models, tmp_path):
+    """A short rk45_device evolve on the card takes the CPU port's steps
+    (T rtol 1e-8), and the snapshot batch's fluxes_fn agrees to 1e-9 of each
+    array's largest value."""
+    from clima_tpu_torch.climate import load_evolve_file
+
+    gpu, cpu = climate_models
+    t_eval = np.array([1.0e3, 1.0e4, 3.0e4])
+    out = {}
+    for name, c in (("gpu", gpu), ("cpu", cpu)):
+        fn = str(tmp_path / f"{name}.npz")
+        assert c.evolve(fn, 0.0, c.T_init, t_eval, overwrite=True, method="rk45_device")
+        out[name] = load_evolve_file(fn), dict(c.evolve_stats)
+    (got, st_gpu), (want, st_cpu) = out["gpu"], out["cpu"]
+    assert st_gpu == st_cpu
+    np.testing.assert_allclose(got["T"], want["T"], rtol=1e-8)
+    for k in ("f_total", "fup_ir", "fdn_ir", "fup_sol", "fdn_sol"):
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-9 * np.abs(want[k]).max(),
+                                   err_msg=k)
+    for k in ("P", "z", "t"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-14, err_msg=k)
+
+
+def test_climate_rhs_outside_the_tables_is_nan_on_the_card(climate_models):
+    """States outside heat_capacity's tables, and NaN states, give a NaN RHS
+    through the kernels (what rk45_device rejects) without faulting the card;
+    the RHS of a physical state afterwards is unchanged."""
+    gpu, _ = climate_models
+    rhs, _ = gpu._build_device_fns()
+    y = gpu._t(gpu.T_init)
+    want = rhs(y).cpu()
+    above = torch.full_like(y, 7000.0)  # the template's tables end at 6000 K
+    nan = torch.where(torch.arange(gpu.neq, device=y.device) == 3, float("nan"), y)
+    for bad in (above, nan):
+        assert not bool(torch.isfinite(rhs(bad)).all())
+    torch.cuda.synchronize()
+    assert torch.equal(rhs(y).cpu(), want)

@@ -45,6 +45,11 @@ MODULES = [
     "clima_tpu_torch.physics.water",
     "clima_tpu_torch.utils.shared_library",
     "clima_tpu_torch.tools.compare_twostream_builds",
+    "clima_tpu_torch.config.atmosphere_file",
+    "clima_tpu_torch.climate",
+    "clima_tpu_torch.climate.climate",
+    "clima_tpu_torch.utils.checkpoint",
+    "clima_tpu_torch.utils.profiling",
     "chip_smoke",
 ]
 
@@ -134,3 +139,54 @@ def test_pipeline_signatures_match_reference():
         port.batched_toa_fluxes(None, [280.0], [[1e6]], mesh=object())
     with pytest.raises(NotImplementedError, match="mesh"):
         port.batched_surface_temperature(None, [[1e6]], mesh=object())
+
+
+def _params(fn):
+    import inspect
+
+    return [(p.name, p.default, p.kind) for p in inspect.signature(fn).parameters.values()]
+
+
+def test_climate_and_utils_signatures_match_reference():
+    """Climate, the atmosphere file, the checkpoint and the profiling
+    functions take the JAX package's parameters with its defaults; Climate's
+    constructor adds only the port's device and dtype."""
+    import torch
+
+    import clima_tpu.climate as ref_climate
+    import clima_tpu.config.atmosphere_file as ref_atm
+    import clima_tpu.utils.checkpoint as ref_checkpoint
+    import clima_tpu.utils.profiling as ref_profiling
+
+    import clima_tpu_torch.climate as climate
+    import clima_tpu_torch.config.atmosphere_file as atm
+    import clima_tpu_torch.utils.checkpoint as checkpoint
+    import clima_tpu_torch.utils.profiling as profiling
+
+    assert climate.__all__ == ref_climate.__all__ == ["Climate", "load_evolve_file"]
+    got, want = _params(climate.Climate.__init__), _params(ref_climate.Climate.__init__)
+    assert got[:len(want)] == want
+    assert [(n, d) for n, d, _ in got[len(want):]] == [("device", None), ("dtype", torch.float64)]
+    for name in ("evolve", "right_hand_side", "_build_device_fns"):
+        assert _params(getattr(climate.Climate, name)) == \
+            _params(getattr(ref_climate.Climate, name)), name
+    assert _params(climate.load_evolve_file) == _params(ref_climate.load_evolve_file)
+    for port, ref in ((atm, ref_atm), (checkpoint, ref_checkpoint), (profiling, ref_profiling)):
+        assert port.__all__ == ref.__all__
+        for name in port.__all__:
+            got, want = getattr(port, name), getattr(ref, name)
+            if isinstance(want, type):
+                got, want = got.__init__, want.__init__
+            assert _params(got) == _params(want), f"{port.__name__}.{name}"
+
+
+def test_config_exports_match_reference():
+    """clima_tpu_torch.config exports every name clima_tpu.config does
+    (heat_capacity and the atmosphere file among them)."""
+    import clima_tpu.config as ref
+    import clima_tpu_torch.config as port
+
+    assert set(ref.__all__) <= set(port.__all__)
+    for name in ref.__all__:
+        assert getattr(port, name) is not None, name
+    assert callable(port.heat_capacity) and callable(port.unpack_atmospherefile)
