@@ -132,11 +132,29 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    one RHS split into radiative transfer and the rest, one profiler pass
    over an RHS, and peak memory.
 
+10. the sharded path: the batched entry points with ``mesh=make_mesh()``,
+    each rank a process of ``clima_tpu_torch.tools.distributed_worker``
+    building its own models. (a) Two gloo ranks sharing the card: phase 5's
+    ``batched_toa_fluxes`` over the entry batch (4 columns per rank) and
+    phase 8's ``batched_rce`` lanes on the template cut to nz=12 (2 lanes
+    per rank), from that model's ``surface_temperature`` warm start. Both
+    ranks must gather the same results, held to the unsharded ones: the TOA
+    fluxes to phase 5's at rtol 1e-12, the RCE lanes to ``batched_rce``
+    without a mesh in this process (run while the ranks work), all status 0
+    with its masks and T_surf/T at rtol 1e-7; each largest gap is printed
+    and whether it is bitwise. (b) One NCCL rank
+    (``initialize_distributed(num_processes=1, process_id=0)`` with the
+    default backend, the rendezvous in the environment): the TOA fluxes
+    must equal phase 5's bitwise. The three kernels must launch in every
+    rank's every call; the ranks run together, and the phase's seconds are
+    printed.
+
 Each path runs with the kernels' launch counts set to 0 just before it and
-read just after; the kernels of a path must each have launched. The
-second-to-last line is a JSON object with each kernel's numbers (its
-launches summed over the radtran, adiabat, RCE, solver, device RCE and
-Climate paths); the last line is the device JSON.
+read just after (the sharded path's in each rank's process); the kernels of
+a path must each have launched. The second-to-last line is a JSON object
+with each kernel's numbers (its launches summed over the radtran, adiabat,
+RCE, solver, device RCE, Climate and sharded paths); the last line is the
+device JSON.
 """
 
 import collections
@@ -147,6 +165,7 @@ import multiprocessing
 import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -174,9 +193,11 @@ from clima_tpu_torch.data import (climate_settings_yaml_text, make_template,  # 
 from clima_tpu_torch.ops import cuda_build, rorr_cuda, twostream, twostream_cuda  # noqa: E402
 from clima_tpu_torch.ops.cuda_graph import CAPTURE_SECONDS, CAPTURES  # noqa: E402
 from clima_tpu_torch.ops.rorr import k_rorr_mix  # noqa: E402
+from clima_tpu_torch import parallel  # noqa: E402
 from clima_tpu_torch.parallel import make_column_fns, solvers  # noqa: E402
 from clima_tpu_torch.physics import eqns  # noqa: E402
 from clima_tpu_torch.radtran import Radtran, opacity, radiate  # noqa: E402
+from clima_tpu_torch.tools import distributed_worker  # noqa: E402
 
 RTOL, ATOL = 1e-9, 1e-12
 B_COLS, K_INNER, NZ_TEMPLATE, N_ZEN = 256, 4, 100, 4
@@ -184,6 +205,9 @@ NZ_R = 2 * NZ_TEMPLATE + 2  # flagship radiative grid (doubled + ghosts)
 ROOFLINE_ROWS, ROOFLINE_NZ = 256 * 60 * 8, 202  # scripts/roofline.py:69-71
 ENTRY_B, ENTRY_NZ = 8, 50  # __graft_entry__.entry
 RCE_NZ, RCE_SUBSTEPS = 20, 6  # tests/test_rce.py:17-18's depth
+# phase 10's RCE lanes at a depth cut to 12, which keeps the script within
+# half its time limit
+SHARDED_RCE_NZ = 12
 HBM_BYTES_PER_S, FP64_OPS_PER_S = 3.35e12, 34e12  # H100 SXM data sheet (non-tensor FP64)
 F64 = 8
 
@@ -218,6 +242,8 @@ KERNELS = {
 RADTRAN_KERNELS = ("two_stream_ir_weighted", "two_stream_solar_multi_weighted", "k_rorr_mix")
 DISPATCH_KERNELS = ("two_stream_ir", "two_stream_solar_multi", "two_stream_solar")
 RESULTS = {name: {"max_abs_err": 0.0, "library_ms": None} for name in KERNELS}
+# phase 5's unsharded TOA fluxes, which phase 10 holds the sharded path to
+UNSHARDED = {}
 
 
 def sync(device):
@@ -1076,6 +1102,7 @@ def _adiabat_on_card(device, smi, conn):
     isr, olr = fns["toa_fluxes"](T_surf, P_i)
     sync(device)
     first_s = time.perf_counter() - t0
+    UNSHARDED["toa"] = (isr.cpu().numpy(), olr.cpu().numpy())
     launches = _launches(RADTRAN_KERNELS)
     print(f"  first toa_fluxes batch: {first_s:.2f} s; CUDA graph capture seconds "
           f"{dict((k, round(v, 3)) for k, v in CAPTURE_SECONDS.items())}")
@@ -1166,8 +1193,8 @@ def _adiabat_on_card(device, smi, conn):
     return launches
 
 
-def _rce_model(device):
-    tpl = make_template(nz=RCE_NZ, n_zenith=N_ZEN, surface_albedo=0.3)
+def _rce_model(device, nz=RCE_NZ):
+    tpl = make_template(nz=nz, n_zenith=N_ZEN, surface_albedo=0.3)
     c = AdiabatClimate(tpl["species"], tpl["settings"], tpl["star"], tpl["datadir"],
                        substeps=RCE_SUBSTEPS, device=device)
     c.verbose = False
@@ -1952,6 +1979,116 @@ def _climate_on_card(device, smi, conn, atmosphere, workdir):
     return launches
 
 
+def _free_port():
+    with contextlib.closing(socket.socket()) as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _gap(got, want):
+    """(largest relative difference, bitwise equal)."""
+    rel = np.abs(got - want) / np.maximum(np.abs(want), 1e-300)
+    return float(rel.max()), bool(np.array_equal(got, want))
+
+
+def phase_sharded_path(smi):
+    print(f"== phase 10: the sharded path (mesh=make_mesh(); two gloo ranks sharing the card: "
+          f"batched_toa_fluxes B={ENTRY_B}, nz={ENTRY_NZ}, and batched_rce "
+          f"B={len(DEVICE_RCE_CO2)}, nz={SHARDED_RCE_NZ}; one NCCL rank: batched_toa_fluxes)")
+    t_phase = time.perf_counter()
+    T_np, P_np = entry_batch(_entry_model(None))
+    c, P_i = _rce_model(None, nz=SHARDED_RCE_NZ)
+    T_warm = c.surface_temperature(P_i, T_guess=280.0)
+    P_i_b = _device_rce_lanes(c, P_i)
+    B = P_i_b.shape[0]
+    rce_args = (P_i_b, np.full(B, T_warm), np.repeat(c.T[None], B, axis=0))
+    print(f"  nz={SHARDED_RCE_NZ} warm start: surface_temperature {T_warm:.10f} K")
+    toa = ("toa", dict(nz=ENTRY_NZ, n_zenith=N_ZEN), parallel.batched_toa_fluxes, (T_np, P_np),
+           {})
+    rce_call = ("rce", dict(nz=SHARDED_RCE_NZ, n_zenith=N_ZEN, surface_albedo=0.3,
+                            substeps=RCE_SUBSTEPS), rce_device.batched_rce, rce_args, {})
+    workdirs = {name: tempfile.mkdtemp(prefix=f"chip_smoke_{name}_") for name in ("gloo", "nccl")}
+    ctxs = {}
+    try:
+        ctxs["gloo"] = distributed_worker.start(2, [toa, rce_call], workdirs["gloo"],
+                                                backend="gloo",
+                                                coordinator=f"127.0.0.1:{_free_port()}",
+                                                threads=2)
+        # the NCCL rank finds its rendezvous in the environment
+        os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+        ctxs["nccl"] = distributed_worker.start(1, [toa], workdirs["nccl"], threads=2)
+        # the unsharded RCE lanes, on the card here while the ranks work
+        t0 = time.perf_counter()
+        want = rce_device.batched_rce(c, *rce_args)
+        sync(c.device)
+        print(f"  unsharded batched_rce (B={B}, nz={SHARDED_RCE_NZ}): "
+              f"{time.perf_counter() - t0:.2f} s")
+        want = {k: v.cpu().numpy() for k, v in want.items() if torch.is_tensor(v)}
+        outs = {}
+        for name, ctx in ctxs.items():
+            for rank, out in enumerate(distributed_worker.join(ctx, workdirs[name], 600)):
+                outs[f"{name} rank {rank}"] = out
+    finally:
+        for ctx in ctxs.values():
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join()
+        for d in workdirs.values():
+            shutil.rmtree(d, ignore_errors=True)
+
+    launches = dict.fromkeys(RADTRAN_KERNELS, 0)
+    for label, out in outs.items():
+        for call, (_, seconds, counts) in out.items():
+            print(f"  {label} of {2 if label.startswith('gloo') else 1}, {call}: "
+                  f"{seconds:.2f} s, kernel launches {counts}")
+            if min(counts.values()) < 1:
+                raise AssertionError(f"a kernel of the sharded path never launched on {label}, "
+                                     f"{call}: {counts}")
+            for k, n in counts.items():
+                launches[k] += n
+
+    r0, r1 = outs["gloo rank 0"], outs["gloo rank 1"]
+    (toa0, _, _), (toa1, _, _) = r0["toa"], r1["toa"]
+    (rce0, _, _), (rce1, _, _) = r0["rce"], r1["rce"]
+    same = all(np.array_equal(a, b) for a, b in zip(toa0, toa1)) and set(rce0) == set(rce1) \
+        and all(np.array_equal(rce0[k], rce1[k]) for k in want)
+    if not same:
+        raise AssertionError("the two gloo ranks gathered different results")
+    print(f"  the two gloo ranks hold the same gathered TOA fluxes and RCE lanes")
+    for i, name in enumerate(("ISR", "OLR")):
+        gap, bitwise = _gap(toa0[i], UNSHARDED["toa"][i])
+        print(f"  {name} (B={ENTRY_B}, two gloo ranks) against phase 5: largest relative gap "
+              f"{gap:.3e}, bitwise {bitwise}")
+        if not gap <= 1e-12:
+            raise AssertionError(f"sharded {name} outside rtol 1e-12 of phase 5's")
+    one = outs["nccl rank 0"]["toa"][0]
+    for i, name in enumerate(("ISR", "OLR")):
+        gap, bitwise = _gap(one[i], UNSHARDED["toa"][i])
+        print(f"  {name} (one NCCL rank) against phase 5: largest relative gap {gap:.3e}, "
+              f"bitwise {bitwise}")
+        if not bitwise:
+            raise AssertionError(f"the one-rank mesh's {name} differs from phase 5's")
+    print(f"  RCE lanes: status {rce0['status']}, outer iterations {rce0['rc_iters']}, "
+          f"solve iterations {rce0['solve_iters']} (unsharded: {want['rc_iters']}, "
+          f"{want['solve_iters']})")
+    if not ((rce0["status"] == 0).all() and rce0["converged"].all()
+            and (want["status"] == 0).all()):
+        raise AssertionError(f"an RCE lane did not converge: sharded {rce0['status']}, "
+                             f"unsharded {want['status']}")
+    if not np.array_equal(rce0["convecting_with_below"], want["convecting_with_below"]):
+        raise AssertionError("the sharded RCE's masks differ from the unsharded ones")
+    for k in ("T_surf", "T"):
+        gap, bitwise = _gap(rce0[k], want[k])
+        print(f"  RCE {k} (two gloo ranks) against unsharded: largest relative gap {gap:.3e}, "
+              f"bitwise {bitwise}")
+        if not gap <= 1e-7:
+            raise AssertionError(f"sharded RCE {k} outside rtol 1e-7 of the unsharded")
+    print(f"  kernel launches on the sharded path (every rank): {launches}")
+    print(f"  phase 10: {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return launches
+
+
 def main():
     t0 = time.perf_counter()
     device, smi = phase_environment()
@@ -1961,7 +2098,8 @@ def main():
     paths = [phase_radtran_path(device), phase_adiabat_path(device, smi)]
     rce_launches, rce_state = phase_rce_path(device, smi)
     paths += [rce_launches, phase_solver_path(device, smi),
-              phase_device_rce_path(device, smi, rce_state), phase_climate_path(device, smi)]
+              phase_device_rce_path(device, smi, rce_state), phase_climate_path(device, smi),
+              phase_sharded_path(smi)]
     for path in paths:
         for name, n in path.items():
             launches[name] = launches.get(name, 0) + n

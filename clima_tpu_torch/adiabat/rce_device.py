@@ -55,7 +55,7 @@ import torch
 from .. import constants as const
 from ..config.species import heat_capacity
 from ..ops.interp import pdot
-from ..parallel.solvers import _no_mesh
+from ..parallel.pipeline import _gather_columns, _local_columns
 from ..physics import eqns
 from ..radtran.opacity import compute_opacity
 from ..radtran.radiate import radiate_ir, radiate_solar
@@ -974,8 +974,11 @@ def batched_rce(c, P_i_surf_b, T_surf_guess_b, T_guess_b,
 
     Every column runs the full reference RCE loop (profile rebuild, RT,
     Newton/PTC stages, mask updates); each step evaluates every column in
-    one batched call. Columns never interact. Sharding over a device mesh is
-    not ported: ``mesh`` must be None.
+    one batched call. Columns never interact. With ``mesh``
+    (``parallel.make_mesh``) each rank solves its contiguous share of the
+    columns, its march graph captured for its own batch size, and every rank
+    returns the whole batch; the chunk decisions below are taken on the
+    whole batch, so a lane's result does not depend on the sharding.
 
     Returns a dict of (B, ...) tensors (T_surf, T, convecting_with_below,
     converged, status, ratio_best, residual_dFdt, max_ratio, rc_iters, P,
@@ -1002,7 +1005,8 @@ def batched_rce(c, P_i_surf_b, T_surf_guess_b, T_guess_b,
        ``residual_dFdt[b]`` is the per-row flux residual of the returned
        state (mW/m^2).
     """
-    _no_mesh(mesh)
+    P_i_surf_b, T_surf_guess_b, T_guess_b, convecting_with_below_b = _local_columns(
+        mesh, P_i_surf_b, T_surf_guess_b, T_guess_b, convecting_with_below_b)
     if chunk_iters is not None:
         build_kwargs = dict(build_kwargs, max_total_iters=int(chunk_iters))
     key = repr(sorted(build_kwargs.items()))
@@ -1025,19 +1029,21 @@ def batched_rce(c, P_i_surf_b, T_surf_guess_b, T_guess_b,
         conv0_b = torch.as_tensor(convecting_with_below_b, dtype=torch.bool, device=c.device)
         use_guess_b = torch.ones(B, dtype=torch.bool, device=c.device)
     if chunk_iters is None:
-        return fns["rce"](x0_b, conv0_b, use_guess_b, P_i_surf_b)
+        return _gather_columns(mesh, fns["rce"](x0_b, conv0_b, use_guess_b, P_i_surf_b))
 
+    # the decisions read the whole batch (every rank's lanes); the
+    # accumulators are the rank's own
     rc_acc = np.zeros(B, np.int64)
     sv_acc = np.zeros(B, np.int64)
-    prev_best = np.full(B, np.inf)
+    prev_best = np.full(B if mesh is None else B * mesh.size(), np.inf)
     stalls = 0
     out = None
     for _ in range(max_chunks):
         out = fns["rce"](x0_b, conv0_b, use_guess_b, P_i_surf_b)
-        conv_h = out["converged"].cpu().numpy()
         rc_acc += out["rc_iters"].cpu().numpy()
         sv_acc += out["solve_iters"].cpu().numpy()
-        best = out["ratio_best"].cpu().numpy().astype(np.float64)
+        conv_h, best = (x.cpu().numpy() for x in _gather_columns(
+            mesh, (out["converged"], out["ratio_best"].to(torch.float64))))
         if conv_h.all():
             break
         # stop only after TWO consecutive chunks in which no unconverged
@@ -1055,4 +1061,4 @@ def batched_rce(c, P_i_surf_b, T_surf_guess_b, T_guess_b,
     out = dict(out)
     out["rc_iters"] = torch.as_tensor(rc_acc, device=c.device)
     out["solve_iters"] = torch.as_tensor(sv_acc, device=c.device)
-    return out
+    return _gather_columns(mesh, out)

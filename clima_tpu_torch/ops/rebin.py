@@ -1,4 +1,5 @@
-"""Conservative rebinning and spectral regridding, host side (numpy).
+"""Conservative rebinning and spectral regridding: host side (numpy) and the
+batched tensor rebin.
 
 These reimplement the semantics of the reference's vendored ``futils``
 routines (`rebin`, `inter2`, `addpnt`, `interp_discrete_to_bins`), which
@@ -10,7 +11,8 @@ time only. ``rebin`` and ``inter2`` run the native C++ merge sweeps of
 bound with ``ctypes``. No ``-march=native``, so a library built on one
 machine loads on another. A failed build, and a non-zero status from the
 library, raise; nothing falls back to numpy. Nothing here runs at import
-time.
+time. :func:`rebin_jnp` is the batched conservative rebin on tensors, on
+any device (its name is the JAX package's, whose traceable form it is).
 """
 
 from __future__ import annotations
@@ -21,10 +23,19 @@ import shutil
 import threading
 
 import numpy as np
+import torch
 
 from ..utils.shared_library import build_shared
 
-__all__ = ["rebin", "rebin_with_errors", "inter2", "addpnt", "interp_discrete_to_bins"]
+__all__ = [
+    "rebin",
+    "rebin_with_errors",
+    "rebin_jnp",
+    "inter2",
+    "addpnt",
+    "interp_discrete_to_bins",
+    "grid_at_exact",
+]
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc",
                     "futils.cpp")
@@ -108,6 +119,31 @@ def rebin_with_errors(old_bins, old_vals, old_errs, new_bins):
     return new_vals, new_errs
 
 
+def rebin_jnp(old_bins, old_vals, new_bins):
+    """Conservative rebin along the last axis, on tensors (any device).
+
+    ``old_bins``: (..., n_old+1) strictly increasing edges; ``old_vals``:
+    (..., n_old); ``new_bins``: (n_new+1,) or broadcastable edges. Batched
+    ``old_bins``/``old_vals`` give every row its own source grid (as RORR's
+    sorted weight edges do). Through the cumulative integral of the
+    piecewise-constant source, interpolated at the new edges clipped to the
+    source's range: regions outside it contribute zero, as in :func:`rebin`.
+    """
+    old_bins, old_vals = torch.as_tensor(old_bins), torch.as_tensor(old_vals)
+    new_bins = torch.as_tensor(new_bins, dtype=old_bins.dtype, device=old_bins.device)
+    F = torch.cat([torch.zeros_like(old_vals[..., :1]),
+                   torch.cumsum(old_vals * torch.diff(old_bins, dim=-1), dim=-1)], dim=-1)
+    x = torch.minimum(torch.maximum(new_bins, old_bins[..., :1]), old_bins[..., -1:])
+    # the interval of each new edge: counts of old edges <= x (compare-all)
+    n = old_bins.shape[-1]
+    idx = torch.clamp((old_bins[..., None, :] <= x[..., :, None]).sum(dim=-1) - 1, 0, n - 2)
+    shape = torch.broadcast_shapes(old_bins.shape[:-1], idx.shape[:-1]) + idx.shape[-1:]
+    at = lambda v, i: torch.gather(v.expand(shape[:-1] + v.shape[-1:]), -1, i.expand(shape))
+    x0, x1, y0, y1 = at(old_bins, idx), at(old_bins, idx + 1), at(F, idx), at(F, idx + 1)
+    Fe = y0 + (x - x0) / torch.where(x1 == x0, torch.ones_like(x1), x1 - x0) * (y1 - y0)
+    return torch.diff(Fe, dim=-1) / torch.diff(new_bins, dim=-1)
+
+
 def addpnt(x: np.ndarray, y: np.ndarray, xnew: float, ynew: float):
     """Insert point (xnew, ynew) keeping x sorted. Mirrors futils ``addpnt``."""
     i = np.searchsorted(x, xnew)
@@ -169,3 +205,12 @@ def interp_discrete_to_bins(bin_edges, xp, yp, extrapolation="Constant", fill_va
                         [xp[-1] + eps, max(bin_edges[-1], xp[-1]) + 1.0]])
     y = np.concatenate([[lo_val, lo_val], yp, [hi_val, hi_val]])
     return inter2(bin_edges, x, y)
+
+
+def grid_at_exact(n, lo, hi):
+    """``n`` points from ``lo`` to ``hi`` (futils ``linspace``) with both
+    endpoints exactly ``lo`` and ``hi``."""
+    g = np.linspace(lo, hi, n)
+    g[0] = lo
+    g[-1] = hi
+    return g

@@ -9,8 +9,10 @@ scans the pair weights in sorted order for each pair's window and evaluates
 the cumulative integral at the master edges, the sort twin's own order and
 rebin (:func:`.rorr.k_rorr_mix`). :func:`k_rorr_mix_cuda` runs that twin for
 tensors on the CPU and launches the kernel for tensors on a CUDA device;
-there is no fallback between the two. ``k_rorr_mix_cuda.launches`` counts its
-kernel launches.
+there is no fallback between the two. ``radtran.opacity.set_rorr_pallas_mode``
+narrows that choice: under "never" a CUDA tensor raises (call the twin
+itself to run it on the card), under "always" a CPU tensor does.
+``k_rorr_mix_cuda.launches`` counts its kernel launches.
 
 What bounds the kernel on an H100 and what its design does about it is
 described at the top of ``csrc/rorr.cu``: the sort's compares, selects and
@@ -36,6 +38,8 @@ from .rorr import k_rorr_mix, make_wxy
 __all__ = ["k_rorr_mix_cuda", "mix_pair_sorted_ref", "mix_pair_rank_ref"]
 
 _BITS = {torch.float32: torch.int32, torch.float64: torch.int64}
+# "auto", "never" or "always": see radtran.opacity.set_rorr_pallas_mode
+_MODE = "auto"
 # the kernel's instances (csrc/rorr.cu, dispatch): (largest nbin, padded pair
 # count NP, threads per lane G), the first whose nbin fits
 _INSTANCES = ((4, 16, 4), (8, 64, 8), (16, 256, 32))
@@ -167,14 +171,21 @@ def k_rorr_mix_cuda(tau_ks_t, wbin, wbin_e):
     """RORR mix of the whole species chain on the kernel's layout.
 
     ``tau_ks_t``: (nk, nbin, R), the flattened batch R last. ``wbin`` (nbin,)
-    and ``wbin_e`` (nbin+1,) on the same device. Returns (nbin, R).
+    and ``wbin_e`` (nbin+1,) on the same device. Returns (nbin, R). The
+    kernel for a CUDA tensor and the twin for a CPU one; under
+    ``set_rorr_pallas_mode`` "never" a CUDA tensor raises, under "always" a
+    CPU tensor does.
     """
-    if tau_ks_t.device.type == "cpu":
+    device_type = tau_ks_t.device.type
+    if device_type == "cpu" and _MODE != "always":
         # contiguous lanes: on a strided view the CPU reductions' order, and
         # so a lane's last bits, would follow the number of lanes
         return k_rorr_mix(tau_ks_t.movedim(1, -1).contiguous(), wbin_e).movedim(-1, 0)
-    if tau_ks_t.device.type != "cuda":
-        raise ValueError(f"no RORR kernel for device {tau_ks_t.device}")
+    if device_type != "cuda" or _MODE == "never":
+        hint = ("; call the twin ops.rorr.k_rorr_mix to run it on the card"
+                if device_type == "cuda" else "")
+        raise ValueError(f"no RORR path for device {tau_ks_t.device} under "
+                         f"set_rorr_pallas_mode({_MODE!r}){hint}")
     nk, nbin, R = tau_ks_t.shape
     dtype, device = tau_ks_t.dtype, tau_ks_t.device
     if dtype not in _BITS:

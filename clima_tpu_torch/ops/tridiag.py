@@ -1,5 +1,6 @@
-"""Tridiagonal solves on tensors: 2x2-block PCR (the two-stream twins' solver)
-and scalar Thomas (the test oracle).
+"""Tridiagonal solves on tensors: 2x2-block PCR (the two-stream twins' solver),
+scalar PCR and Thomas (the test oracle, and the twins' solve under
+``ops.twostream.set_tridiag_method("thomas")``).
 
 The reference solves one 2*nz tridiagonal system per (wavelength bin, gauss
 point, zenith angle) serially (``src/radtran/clima_radtran_twostream.f90:
@@ -15,7 +16,15 @@ import math
 
 import torch
 
-__all__ = ["tridiag", "block2_pcr_components", "block2_pcr_components_multi"]
+__all__ = [
+    "tridiag",
+    "tridiag_batched_last",
+    "tridiag_pcr",
+    "tridiag_block2_pcr",
+    "block2_pcr_components",
+    "block2_pcr_components_multi",
+    "block2_pcr_components_dense",
+]
 
 
 def tridiag(a, b, c, d):
@@ -39,6 +48,56 @@ def tridiag(a, b, c, d):
     for i in range(n - 2, -1, -1):
         x.append(dp[i] - cp[i] * x[-1])
     return torch.stack(x[::-1], dim=0)
+
+
+def tridiag_batched_last(a, b, c, d):
+    """Thomas solve along the LAST axis (batch dims leading); the bands and
+    the right-hand side broadcast to a common shape."""
+    a, b, c, d = torch.broadcast_tensors(*(torch.as_tensor(x) for x in (a, b, c, d)))
+    mv = lambda x: x.movedim(-1, 0)
+    return tridiag(mv(a), mv(b), mv(c), mv(d)).movedim(0, -1)
+
+
+def tridiag_pcr(a, b, c, d):
+    """Scalar parallel cyclic reduction along the LAST axis (batch dims
+    leading): ceil(log2 n) whole-tensor elimination sweeps. Stable for
+    diagonally dominant systems; the two-stream system is not one in
+    optically thin layers, where :func:`tridiag_block2_pcr` serves.
+    a[..., 0] and c[..., -1] are ignored, as in the Thomas convention."""
+    a, b, c, d = torch.broadcast_tensors(*(torch.as_tensor(x) for x in (a, b, c, d)))
+    n = a.shape[-1]
+    # the unused first sub- and last super-diagonal entries must be exactly 0
+    a = torch.cat([torch.zeros_like(a[..., :1]), a[..., 1:]], dim=-1)
+    c = torch.cat([c[..., :-1], torch.zeros_like(c[..., -1:])], dim=-1)
+    for s in range(max(1, math.ceil(math.log2(n)))):
+        k = 1 << s
+        # neighbours from the system before this sweep
+        alpha = a / _shift(b, -k, 1.0)
+        gamma = c / _shift(b, +k, 1.0)
+        a, b, c, d = (-alpha * _shift(a, -k, 0.0),
+                      b - alpha * _shift(c, -k, 0.0) - gamma * _shift(a, +k, 0.0),
+                      -gamma * _shift(c, +k, 0.0),
+                      d - alpha * _shift(d, -k, 0.0) - gamma * _shift(d, +k, 0.0))
+    return d / b
+
+
+def tridiag_block2_pcr(a, b, c, d):
+    """Block PCR for even-size tridiagonal systems, along the LAST axis.
+
+    The calling convention of :func:`tridiag_batched_last`; n must be even.
+    Rows 2k and 2k+1 form the 2x2 block k, solved by
+    :func:`block2_pcr_components`: the two-stream system's block structure,
+    whose blocks stay well conditioned where scalar pivots vanish.
+    """
+    a, b, c, d = torch.broadcast_tensors(*(torch.as_tensor(x) for x in (a, b, c, d)))
+    n = a.shape[-1]
+    if n % 2:
+        raise ValueError(f"tridiag_block2_pcr needs an even system size, not {n}")
+    a = torch.cat([torch.zeros_like(a[..., :1]), a[..., 1:]], dim=-1)
+    c = torch.cat([c[..., :-1], torch.zeros_like(c[..., -1:])], dim=-1)
+    u0, u1 = block2_pcr_components(a[..., 0::2], b[..., 0::2], c[..., 0::2], a[..., 1::2],
+                                   b[..., 1::2], c[..., 1::2], d[..., 0::2], d[..., 1::2])
+    return torch.stack([u0, u1], dim=-1).reshape(a.shape)
 
 
 def _shift(x, k, fill):
@@ -110,3 +169,50 @@ def block2_pcr_components_multi(L01, M00, M01, M10, M11, U10, f0s, f1s):
     u0s = (M11 * f0s - M01 * f1s) * inv_det
     u1s = (M00 * f1s - M10 * f0s) * inv_det
     return u0s, u1s
+
+
+def block2_pcr_components_dense(L01, M00, M01, M10, M11, U10, f0, f1):
+    """Dense 2x2-block PCR: the same block system as
+    :func:`block2_pcr_components`, each sweep in full 2x2 matrix algebra on
+    (L, M, U) without using their sparsity (the oracle of the structured
+    form). Returns (u0, u1), each (..., m)."""
+    batch = torch.broadcast_shapes(*(x.shape for x in (L01, M00, M01, M10, M11, U10, f0, f1)))
+    bc = lambda x: x.expand(batch)
+    zeros = torch.zeros(batch, dtype=M00.dtype, device=M00.device)
+    L = (zeros, bc(L01), zeros, zeros)  # (l00, l01, l10, l11)
+    U = (zeros, zeros, bc(U10), zeros)
+    M = (bc(M00), bc(M01), bc(M10), bc(M11))
+    f = (bc(f0), bc(f1))
+    zero_fill, identity_fill = (0.0, 0.0, 0.0, 0.0), (1.0, 0.0, 0.0, 1.0)
+
+    def shift_t(t, k, fills):
+        return tuple(_shift(x, k, fill) for x, fill in zip(t, fills))
+
+    def inv2(A):
+        a00, a01, a10, a11 = A
+        inv_det = 1.0 / (a00 * a11 - a01 * a10)
+        return (a11 * inv_det, -a01 * inv_det, -a10 * inv_det, a00 * inv_det)
+
+    def mm(A, B):
+        a00, a01, a10, a11 = A
+        b00, b01, b10, b11 = B
+        return (a00 * b00 + a01 * b10, a00 * b01 + a01 * b11,
+                a10 * b00 + a11 * b10, a10 * b01 + a11 * b11)
+
+    def mv(A, v):
+        return (A[0] * v[0] + A[1] * v[1], A[2] * v[0] + A[3] * v[1])
+
+    for s in range(max(1, math.ceil(math.log2(batch[-1])))):
+        k = 1 << s
+        L_m, U_m, M_m = shift_t(L, -k, zero_fill), shift_t(U, -k, zero_fill), \
+            shift_t(M, -k, identity_fill)
+        L_p, U_p, M_p = shift_t(L, +k, zero_fill), shift_t(U, +k, zero_fill), \
+            shift_t(M, +k, identity_fill)
+        f_m, f_p = shift_t(f, -k, (0.0, 0.0)), shift_t(f, +k, (0.0, 0.0))
+        alpha = mm(L, inv2(M_m))
+        gamma = mm(U, inv2(M_p))
+        af, gf = mv(alpha, f_m), mv(gamma, f_p)
+        L, U, M, f = (tuple(-x for x in mm(alpha, L_m)), tuple(-x for x in mm(gamma, U_p)),
+                      tuple(x - y - z for x, y, z in zip(M, mm(alpha, U_m), mm(gamma, L_p))),
+                      (f[0] - af[0] - gf[0], f[1] - af[1] - gf[1]))
+    return mv(inv2(M), f)

@@ -8,14 +8,16 @@ takes arbitrary leading batch dims with ``nz`` last (TOA-down, as in the
 reference core); outputs are edge quantities (..., nz+1) with index 0 = TOA.
 
 These are the twins of the CUDA kernels in :mod:`.twostream_cuda`: the same
-math as the JAX package's XLA path, solved by 2x2-block PCR.
+math as the JAX package's XLA path, solved by 2x2-block PCR, or by Thomas
+after ``set_tridiag_method("thomas")``. ``set_pallas_mode`` chooses between
+the kernels and these twins in the wrappers of :mod:`.twostream_cuda`.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .tridiag import block2_pcr_components, block2_pcr_components_multi
+from .tridiag import block2_pcr_components_multi, tridiag_batched_last
 from .. import constants as const
 
 __all__ = [
@@ -24,9 +26,62 @@ __all__ = [
     "two_stream_solar_multi_weighted",
     "two_stream_ir",
     "two_stream_ir_weighted",
+    "set_tridiag_method",
 ]
 
 _SQRT3 = 3.0**0.5
+
+# the twins' solve: "pcr" (2x2-block parallel cyclic reduction) or "thomas"
+# (the interleaved scalar system, sequential over its 2*nz rows)
+_TRIDIAG_METHOD = "pcr"
+
+
+def set_tridiag_method(name: str):
+    """Select the twins' tridiagonal solve: "pcr" (2x2-block PCR, the
+    default) or "thomas" (the scalar Thomas recurrence on the interleaved
+    system). It applies to every twin, the multi-zenith one included (in the
+    JAX package its multi-zenith solve is always block PCR); the CUDA kernels
+    keep their own 2x2-block elimination, as the Pallas kernels keep theirs."""
+    global _TRIDIAG_METHOD
+    if name not in ("pcr", "thomas"):
+        raise ValueError(name)
+    _TRIDIAG_METHOD = name
+
+
+# which side the wrappers of .twostream_cuda take (see set_pallas_mode)
+_PALLAS_MODE = "auto"
+
+
+def set_pallas_mode(name: str):
+    """The switch of the two-stream wrappers of :mod:`.twostream_cuda`, the
+    JAX package's name for its choice between the Pallas kernels and XLA.
+    Here the tensor's device chooses, the CUDA kernel for a CUDA tensor and
+    the twin of this module for a CPU tensor, and the mode only refuses:
+
+    - "auto" (the default): nothing;
+    - "never": a CUDA tensor (to run a twin on the card, call it);
+    - "always": a CPU tensor.
+    """
+    global _PALLAS_MODE
+    if name not in ("auto", "never", "always"):
+        raise ValueError(name)
+    _PALLAS_MODE = name
+
+
+def _solve_rows(A_ev, B_ev, D_ev, A_od, B_od, D_od, E_ev, E_od):
+    """The 2*nz system from its even/odd rows, for right-hand sides E (nrhs,
+    ..., nz) sharing the matrix rows (..., nz): (y1, y2), each like E."""
+    if _TRIDIAG_METHOD == "pcr":
+        return block2_pcr_components_multi(A_ev, B_ev, D_ev, A_od, B_od, D_od, E_ev, E_od)
+    shape = torch.broadcast_shapes(A_ev.shape, E_ev.shape)
+
+    def interleave(ev, od):
+        return torch.stack([ev.expand(shape), od.expand(shape)], dim=-1).reshape(
+            shape[:-1] + (2 * shape[-1],))
+
+    sol = tridiag_batched_last(interleave(A_ev, A_od), interleave(B_ev, B_od),
+                               interleave(D_ev, D_od), interleave(E_ev, E_od))
+    return sol[..., 0::2], sol[..., 1::2]
 
 
 def _cumsum_last(x):
@@ -126,7 +181,7 @@ def _solar(tau_in, w0_in, gt_in, u0, Rsfc):
     A_ev, B_ev, D_ev, A_od, B_od, D_od = _matrix_rows(e1, e2, e3, e4, Rsfc)
     E_ev, E_od = _rhs_rows(e1[None], e2[None], e3[None], e4[None],
                            cp0, cpb, cm0, cmb, Rsfc, Ssfc)
-    y1, y2 = block2_pcr_components_multi(A_ev, B_ev, D_ev, A_od, B_od, D_od, E_ev, E_od)
+    y1, y2 = _solve_rows(A_ev, B_ev, D_ev, A_od, B_od, D_od, E_ev, E_od)
 
     e1, e2, e3, e4 = e1[None], e2[None], e3[None], e4[None]
     top = y1[..., :1] * e3[..., :1] - y2[..., :1] * e4[..., :1] + cp0[..., :1]
@@ -232,7 +287,8 @@ def two_stream_ir(tau, w0, gt, emissivity, has_hard_surface, tau_min, bplanck):
 
     A_ev, B_ev, D_ev, A_od, B_od, D_od = _matrix_rows(e1, e2, e3, e4, Rsfc)
     E_ev, E_od = _rhs_rows(e1, e2, e3, e4, cp0, cpb, cm0, cmb, Rsfc, Ssfc)
-    y1, y2 = block2_pcr_components(A_ev, B_ev, D_ev, A_od, B_od, D_od, E_ev, E_od)
+    y1, y2 = (y[0] for y in _solve_rows(A_ev, B_ev, D_ev, A_od, B_od, D_od, E_ev[None],
+                                        E_od[None]))
 
     fup = torch.cat([y1[..., :1] * e3[..., :1] - y2[..., :1] * e4[..., :1] + cp0[..., :1],
                      y1 * e1 + y2 * e2 + cpb], -1)

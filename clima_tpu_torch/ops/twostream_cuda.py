@@ -10,6 +10,9 @@ unreduced kernels carry those names and signatures here. Each wrapper runs
 the plain PyTorch twin (:mod:`.twostream`, the same math as the JAX package's
 XLA path, solved by block PCR) for tensors on the CPU, and launches the kernel
 for tensors on a CUDA device; there is no fallback between the two.
+``twostream.set_pallas_mode`` narrows that choice: under "never" a CUDA
+tensor raises (call the twin itself to run it on the card), under "always"
+a CPU tensor does.
 
 What bounds the kernels on an H100, and what the designs do about it, is
 described in ``csrc/twostream.cu``. Four kernels serve the five wrappers;
@@ -45,6 +48,22 @@ __all__ = ["two_stream_ir_weighted_cuda", "two_stream_solar_multi_weighted_cuda"
            "two_stream_ir_auto", "two_stream_solar_multi_auto", "two_stream_solar_auto",
            "ir_weighted_schedule_ref", "ir_rows_schedule_ref", "solar_weighted_schedule_ref",
            "solar_rows_schedule_ref"]
+
+
+def _use_kernel(tau, twin):
+    """Whether a wrapper launches its kernel for ``tau`` (True) or runs its
+    twin (False): the kernel for a CUDA tensor, the twin for a CPU one.
+    ``twostream.set_pallas_mode`` only refuses: "never" a CUDA tensor,
+    "always" a CPU tensor; a tensor on another device always raises."""
+    device = tau.device.type
+    if device == "cuda" and ts._PALLAS_MODE != "never":
+        return True
+    if device == "cpu" and ts._PALLAS_MODE != "always":
+        return False
+    hint = (f"; call the twin twostream.{twin.__name__} to run it on the card"
+            if device == "cuda" else "")
+    raise ValueError(f"no two-stream path for device {tau.device} under "
+                     f"set_pallas_mode({ts._PALLAS_MODE!r}){hint}")
 
 
 def _solar_max_group(is_f64, with_amean):
@@ -109,11 +128,9 @@ def two_stream_ir_weighted_cuda(tau, w0, gt, emissivity, has_hard_surface, tau_m
     the kernel. Twin: :func:`.twostream.two_stream_ir_weighted`; plain model of
     the kernel's schedule: :func:`ir_weighted_schedule_ref`.
     """
-    if tau.device.type == "cpu":
+    if not _use_kernel(tau, ts.two_stream_ir_weighted):
         return ts.two_stream_ir_weighted(tau, w0, gt, emissivity, has_hard_surface,
                                          tau_min, bplanck, wbin)
-    if tau.device.type != "cuda":
-        raise ValueError(f"no two-stream kernel for device {tau.device}")
     _check(dict(tau=tau, w0=w0, gt=gt, emissivity=emissivity, bplanck=bplanck, wbin=wbin),
            tau.dtype, tau.device)
     _, fup, fdn = _launch(False, False, tau, w0, gt, emissivity, bplanck, None, None, wbin,
@@ -138,11 +155,9 @@ def two_stream_solar_multi_weighted_cuda(tau, w0, gt, u0s, Rsfc, zw, wbin, with_
     Twin: :func:`.twostream.two_stream_solar_multi_weighted`; plain model of
     the kernel's schedule: :func:`solar_weighted_schedule_ref`.
     """
-    if tau.device.type == "cpu":
+    if not _use_kernel(tau, ts.two_stream_solar_multi_weighted):
         return ts.two_stream_solar_multi_weighted(tau, w0, gt, u0s, Rsfc, zw, wbin,
                                                   with_amean=with_amean)
-    if tau.device.type != "cuda":
-        raise ValueError(f"no two-stream kernel for device {tau.device}")
     _check(dict(tau=tau, w0=w0, gt=gt, u0s=u0s, Rsfc=Rsfc, zw=zw, wbin=wbin),
            tau.dtype, tau.device)
     nG = wbin.shape[0]
@@ -218,8 +233,6 @@ def _zenith_groups(solve, u0s, size, zw=None):
 
 def _device_checked(tensors):
     tau = tensors["tau"]
-    if tau.device.type != "cuda":
-        raise ValueError(f"no two-stream kernel for device {tau.device}")
     if tau.ndim != 2:
         raise ValueError(f"the kernels take a 2-D (rows, nz) batch, not {tuple(tau.shape)}")
     _check(tensors, tau.dtype, tau.device)
@@ -235,7 +248,7 @@ def two_stream_ir_auto(tau, w0, gt, emissivity, has_hard_surface, tau_min, bplan
     :func:`.twostream.two_stream_ir`; plain model of the kernel's schedule:
     :func:`ir_rows_schedule_ref`.
     """
-    if tau.device.type == "cpu":
+    if not _use_kernel(tau, ts.two_stream_ir):
         return ts.two_stream_ir(tau, w0, gt, emissivity, has_hard_surface, tau_min, bplanck)
     if not isinstance(tau_min, (int, float)):
         raise TypeError("tau_min must be a Python float for the kernel")
@@ -259,7 +272,7 @@ def two_stream_solar_multi_auto(tau, w0, gt, u0s, Rsfc):
     :func:`.twostream.two_stream_solar_multi`; plain model of the kernel's
     schedule: :func:`solar_rows_schedule_ref`.
     """
-    if tau.device.type == "cpu":
+    if not _use_kernel(tau, ts.two_stream_solar_multi):
         return ts.two_stream_solar_multi(tau, w0, gt, u0s, Rsfc)
     _device_checked(dict(tau=tau, w0=w0, gt=gt, u0s=u0s, Rsfc=Rsfc))
     out = _launch_solar_multi(tau, w0, gt, u0s, Rsfc)
@@ -280,7 +293,7 @@ def two_stream_solar_auto(tau, w0, gt, u0, Rsfc):
     Twin: :func:`.twostream.two_stream_solar`; plain model of the kernel's
     schedule: :func:`solar_rows_schedule_ref` with ``per_row``.
     """
-    if tau.device.type == "cpu":
+    if not _use_kernel(tau, ts.two_stream_solar):
         return ts.two_stream_solar(tau, w0, gt, u0, Rsfc)
     _device_checked(dict(tau=tau, w0=w0, gt=gt, u0=u0, Rsfc=Rsfc))
     out = tuple(x[0] for x in _launch_solar_multi(tau, w0, gt, u0, Rsfc, per_row=True))

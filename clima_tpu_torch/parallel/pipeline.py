@@ -4,15 +4,30 @@ The port of ``clima_tpu/parallel/pipeline.py``: the column model (moist
 adiabat, altitude solve, opacity, two-stream RT, TOA fluxes) and a damped
 Newton surface-temperature solve as functions of a batch of columns
 (T_surf (B,), P_i_surf (B, ng)) that stay on the device, where the JAX
-package writes them per column and batches them with ``vmap``. The mesh and
-multi-process helpers (``make_mesh``, ``shard_columns``,
-``initialize_distributed``) are not ported yet.
+package writes them per column and batches them with ``vmap``.
+
+Columns never interact, so sharding them over devices is data parallelism
+with one process per device, the idiom of ``torch.distributed``:
+:func:`initialize_distributed` joins the process group, :func:`make_mesh`
+gives the 1-D ``columns`` mesh over its ranks and :func:`shard_columns` the
+placement of the column axis on it. Given ``mesh=``, each batched entry
+point (the two here, the five solves of :mod:`.solvers` and
+``adiabat.rce_device.batched_rce``) takes every rank's copy of the whole
+batch, as a JAX program whose processes all pass the same global array,
+runs the single-device code on the rank's contiguous share of the columns
+and all-gathers the per-column results, so that every rank returns the
+whole batch. The only other traffic is what the global loop decisions read
+(the iteration count of :func:`batched_surface_temperature`, the chunk
+decisions of ``batched_rce``), gathered the same way.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import constants as const
 from ..adiabat.altitude import compute_altitude_core
@@ -20,14 +35,117 @@ from ..adiabat.profile import AdiabatParams, make_profile_core
 from ..radtran.opacity import compute_opacity
 from ..radtran.radiate import integrate_fluxes, radiate_ir, radiate_solar
 
-__all__ = ["make_column_fns", "batched_toa_fluxes", "batched_surface_temperature"]
+__all__ = [
+    "make_column_fns",
+    "batched_toa_fluxes",
+    "batched_surface_temperature",
+    "make_mesh",
+    "shard_columns",
+    "initialize_distributed",
+]
+
+def initialize_distributed(coordinator_address=None, num_processes=None, process_id=None,
+                           backend=None):
+    """Join the process group of a multi-process run: one process per device.
+
+    ``coordinator_address`` ("host:port" of rank 0), ``num_processes`` (the
+    world size) and ``process_id`` (this process's rank) are read from
+    torchrun's environment (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK) where
+    they are None. ``backend`` defaults to NCCL where there is a CUDA device
+    and gloo elsewhere; gloo also serves ranks that share one card, which
+    NCCL refuses. Afterwards the current CUDA device is the rank's own
+    (LOCAL_RANK, else the rank, modulo the host's cards), so that
+    ``resolve_device()`` and every model built later land on it. Build the
+    mesh with :func:`make_mesh`; the only traffic between ranks is the
+    gathered per-column results and the loop decisions.
+    """
+    if backend is None:
+        backend = "nccl" if torch.cuda.is_available() else "gloo"
+    init_method = "env://" if coordinator_address is None else f"tcp://{coordinator_address}"
+    dist.init_process_group(backend, init_method=init_method,
+                            world_size=-1 if num_processes is None else int(num_processes),
+                            rank=-1 if process_id is None else int(process_id))
+    if torch.cuda.is_available():
+        local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+        torch.cuda.set_device(local % torch.cuda.device_count())
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: sharding columns over devices (make_mesh/shard_columns, the multi-device "
-            "item of ROADMAP Queue 1) is not ported; pass mesh=None")
+def make_mesh(n_devices=None, devices=None):
+    """1-D ``columns`` mesh (a ``DeviceMesh``) over every rank of the process group.
+
+    One device per rank: ``n_devices``, where given, must be the world size,
+    and ``devices``, where given, the world's ranks in order. Without a
+    process group this is a one-rank mesh on the current device that starts
+    none, so ``mesh=make_mesh()`` works in a plain script as it does in the
+    JAX package without ``initialize_distributed``. The entry points run a
+    one-rank mesh as ``mesh=None``: it holds the whole batch.
+    """
+    from torch.distributed.device_mesh import DeviceMesh
+
+    grouped = dist.is_initialized()
+    ranks = list(range(dist.get_world_size() if grouped else 1))
+    if n_devices is not None and int(n_devices) != len(ranks):
+        raise ValueError(f"n_devices={n_devices}: a mesh spans all {len(ranks)} ranks of the "
+                         "process group, one device per rank")
+    if devices is not None and [int(d) for d in devices] != ranks:
+        raise ValueError(f"devices={list(devices)}: a mesh spans the process group's ranks "
+                         f"{ranks} in order, one device per rank")
+    device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    if grouped:
+        return DeviceMesh(device_type, ranks, mesh_dim_names=("columns",))
+    # the mesh of rank 0 alone, with no process group behind it
+    return DeviceMesh(device_type, ranks, mesh_dim_names=("columns",), _init_backend=False,
+                      _rank=0)
+
+
+def shard_columns(mesh):
+    """The placement of the leading (column) axis on ``mesh``: ``(mesh,
+    [Shard(0)])``, as ``distribute_tensor(x, *shard_columns(mesh))`` takes it
+    (the counterpart of ``NamedSharding(mesh, P("columns"))``)."""
+    from torch.distributed.tensor import Shard
+
+    return mesh, [Shard(0)]
+
+
+def _local_columns(mesh, *arrays):
+    """This rank's contiguous share of a batch of columns.
+
+    ``arrays[0]`` (B, ...) sets the batch; it and every other array with B
+    rows are cut to the rank's B / n rows, the rest (numbers, broadcast
+    values, None) pass as they are. Without a mesh everything passes. A
+    batch that does not divide over the mesh raises, as placing it on an
+    indivisible ``NamedSharding`` does in JAX.
+    """
+    if mesh is None or mesh.size() == 1:
+        return arrays
+    n, B = mesh.size(), len(arrays[0])
+    if B % n:
+        raise ValueError(f"a batch of {B} columns does not divide over a mesh of {n} ranks")
+    k = B // n
+    share = slice(mesh.get_local_rank() * k, (mesh.get_local_rank() + 1) * k)
+    return tuple(a[share] if a is not None and np.ndim(a) > 0 and len(a) == B else a
+                 for a in arrays)
+
+
+def _gather_columns(mesh, out):
+    """Per-column results of every rank joined along dim 0, on every rank.
+
+    ``out``: a tensor, or a tuple, list or dict of them (nested); other
+    values pass as they are. Every rank holds its own share of the columns
+    in rank order, so the result is the whole batch in its original order.
+    """
+    if mesh is None or mesh.size() == 1:
+        return out
+    if isinstance(out, dict):
+        return {k: _gather_columns(mesh, v) for k, v in out.items()}
+    if isinstance(out, (tuple, list)):
+        return type(out)(_gather_columns(mesh, v) for v in out)
+    if not torch.is_tensor(out):
+        return out
+    x = out.contiguous()
+    parts = [torch.empty_like(x) for _ in range(mesh.size())]
+    dist.all_gather(parts, x, group=mesh.get_group(0))
+    return torch.cat(parts)
 
 
 def make_column_fns(c):
@@ -143,11 +261,13 @@ def make_column_fns(c):
 
 def batched_toa_fluxes(c, T_surf_batch, P_i_surf_batch, mesh=None):
     """Batched TOA fluxes (ISR, OLR), each (B,), on ``c.device``. The
-    inputs may be numbers, arrays or tensors on any device. Sharding over a
-    device mesh is not ported: ``mesh`` must be None."""
-    _no_mesh(mesh)
+    inputs may be numbers, arrays or tensors on any device. With ``mesh``
+    (:func:`make_mesh`) each rank computes its share of the columns and
+    returns the whole batch."""
+    P_i_surf_batch, T_surf_batch = _local_columns(mesh, P_i_surf_batch, T_surf_batch)
     t = lambda x: torch.as_tensor(x, dtype=c.dtype, device=c.device)
-    return make_column_fns(c)["toa_fluxes"](t(T_surf_batch), t(P_i_surf_batch))
+    return _gather_columns(mesh, make_column_fns(c)["toa_fluxes"](t(T_surf_batch),
+                                                                  t(P_i_surf_batch)))
 
 
 def batched_surface_temperature(c, P_i_surf_batch, T_guess=280.0, max_iter=30, mesh=None):
@@ -156,10 +276,12 @@ def batched_surface_temperature(c, P_i_surf_batch, T_guess=280.0, max_iter=30, m
     Every lane steps until all lanes have converged or ``max_iter`` steps
     were taken, as the JAX package's ``while_loop`` does (converged lanes
     keep their value). Returns (T_surf (B,), resid (B,), converged (B,),
-    iterations). Sharding over a device mesh is not ported: ``mesh`` must be
-    None.
+    iterations). With ``mesh`` each rank steps its share of the columns until
+    they have converged and returns the whole batch; ``iterations`` is the
+    largest count over the ranks, the global loop's: a converged lane keeps
+    its value, so the steps a rank skips change none.
     """
-    _no_mesh(mesh)
+    (P_i_surf_batch,) = _local_columns(mesh, P_i_surf_batch)
     step = make_column_fns(c)["newton_step"]
     P_i = torch.as_tensor(P_i_surf_batch, dtype=c.dtype, device=c.device)
     B = P_i.shape[0]
@@ -170,5 +292,6 @@ def batched_surface_temperature(c, P_i_surf_batch, T_guess=280.0, max_iter=30, m
     while iters < max_iter and not bool(torch.all(state[2])):
         state = step(state, P_i)
         iters += 1
-    logT, resid, conv = state
-    return 10.0**logT, resid, conv, iters
+    logT, resid, conv = _gather_columns(mesh, state)
+    iters = _gather_columns(mesh, torch.tensor([iters], device=c.device)).max()
+    return 10.0**logT, resid, conv, int(iters)

@@ -22,7 +22,11 @@ under a ``while_loop``; here a Python loop steps every column with fixed
 shapes and updates the active ones with ``torch.where``, one host sync per
 iteration. The nested solves of the reference (surface_temperature_column runs
 make_column in every residual) are one joint system, as in the JAX package.
-Sharding over a device mesh is not ported: ``mesh`` must be None.
+
+With ``mesh`` (:func:`.pipeline.make_mesh`) each rank solves its contiguous
+share of the columns and every rank returns the whole batch. A lane's result
+does not depend on when another rank's loop stops (a lane that is done keeps
+its values), so only the outputs are gathered; they are all per column.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ import numpy as np
 import torch
 
 from ..physics import eqns
-from .pipeline import _no_mesh, make_column_fns
+from .pipeline import _gather_columns, _local_columns, make_column_fns
 
 __all__ = [
     "newton_solve",
@@ -222,7 +226,7 @@ def batched_make_column(c, T_surf_b, N_i_b, mesh=None, tol=None, max_iter=50,
 
     Returns dict(P_i_surf (B, ng), fnorm, converged, fnorm_floor, status).
     """
-    _no_mesh(mesh)
+    N_i_b, T_surf_b = _local_columns(mesh, N_i_b, T_surf_b)
     profile_only = make_column_fns(c)["profile_only"]
     T_trop = float(c.T_trop)
     tol = float(c.tol_make_column) if tol is None else tol
@@ -243,8 +247,8 @@ def batched_make_column(c, T_surf_b, N_i_b, mesh=None, tol=None, max_iter=50,
         return N - _lanes(N_i_b, X.shape[0]), _lanes(scale, X.shape[0])
 
     x, f, conv, floor, status = newton_solve(residual, ladder, tol=tol, max_iter=max_iter)
-    return dict(P_i_surf=10.0 ** x, fnorm=f, converged=conv, fnorm_floor=floor,
-                status=status)
+    return _gather_columns(mesh, dict(P_i_surf=10.0 ** x, fnorm=f, converged=conv,
+                                      fnorm_floor=floor, status=status))
 
 
 def batched_make_profile_bg_gas(c, T_surf_b, P_i_b, P_surf_b, bg_gas, mesh=None, tol=1.0e-8,
@@ -257,7 +261,7 @@ def batched_make_profile_bg_gas(c, T_surf_b, P_i_b, P_surf_b, bg_gas, mesh=None,
     Returns dict(P_i_surf (B, ng) with the solved bg entry, fnorm, converged,
     fnorm_floor, status).
     """
-    _no_mesh(mesh)
+    P_i_b, T_surf_b, P_surf_b = _local_columns(mesh, P_i_b, T_surf_b, P_surf_b)
     profile_only = make_column_fns(c)["profile_only"]
     T_trop = float(c.T_trop)
     ind = c.species_names.index(bg_gas)
@@ -275,8 +279,9 @@ def batched_make_profile_bg_gas(c, T_surf_b, P_i_b, P_surf_b, bg_gas, mesh=None,
         return (m["P_surf"] - P_target)[:, None], P_target[:, None]
 
     x, f, conv, floor, status = newton_solve(residual, ladder, tol=tol, max_iter=max_iter)
-    return dict(P_i_surf=_with_column(P_i_b, ind, 10.0 ** x[:, 0]), fnorm=f, converged=conv,
-                fnorm_floor=floor, status=status)
+    return _gather_columns(mesh, dict(P_i_surf=_with_column(P_i_b, ind, 10.0 ** x[:, 0]),
+                                      fnorm=f, converged=conv, fnorm_floor=floor,
+                                      status=status))
 
 
 def _energy_residual_parts(m, surface_heat_flow):
@@ -302,7 +307,7 @@ def batched_surface_temperature_trop(c, P_i_b, T_guess=280.0, mesh=None, tol=1.0
     Returns dict(T_surf (B,), T_trop (B,), fnorm, converged, fnorm_floor,
     status).
     """
-    _no_mesh(mesh)
+    P_i_b, T_guess = _local_columns(mesh, P_i_b, T_guess)
     column_model = make_column_fns(c)["column_model"]
     shf = float(c.surface_heat_flow)
     bolometric = float(c.rad.bolometric_flux())
@@ -322,8 +327,8 @@ def batched_surface_temperature_trop(c, P_i_b, T_guess=280.0, mesh=None, tol=1.0
         return torch.stack([r1, r2], dim=-1), torch.stack([s1, T_trop], dim=-1)
 
     x, f, conv, floor, status = newton_solve(residual, ladder, tol=tol, max_iter=max_iter)
-    return dict(T_surf=10.0 ** x[:, 0], T_trop=10.0 ** x[:, 1], fnorm=f, converged=conv,
-                fnorm_floor=floor, status=status)
+    return _gather_columns(mesh, dict(T_surf=10.0 ** x[:, 0], T_trop=10.0 ** x[:, 1], fnorm=f,
+                                      converged=conv, fnorm_floor=floor, status=status))
 
 
 def batched_surface_temperature_column(c, N_i_b, T_guess=280.0, mesh=None, tol=1.0e-8,
@@ -339,7 +344,7 @@ def batched_surface_temperature_column(c, N_i_b, T_guess=280.0, mesh=None, tol=1
     Returns dict(T_surf (B,), P_i_surf (B, ng), fnorm, converged,
     fnorm_floor, status).
     """
-    _no_mesh(mesh)
+    N_i_b, T_guess = _local_columns(mesh, N_i_b, T_guess)
     column_model = make_column_fns(c)["column_model"]
     T_trop = float(c.T_trop)
     shf = float(c.surface_heat_flow)
@@ -364,8 +369,9 @@ def batched_surface_temperature_column(c, N_i_b, T_guess=280.0, mesh=None, tol=1
                 torch.cat([s1[:, None], _lanes(sN, N)], dim=1))
 
     x, f, conv, floor, status = newton_solve(residual, ladder, tol=tol, max_iter=max_iter)
-    return dict(T_surf=10.0 ** x[:, 0], P_i_surf=10.0 ** x[:, 1:], fnorm=f, converged=conv,
-                fnorm_floor=floor, status=status)
+    return _gather_columns(mesh, dict(T_surf=10.0 ** x[:, 0], P_i_surf=10.0 ** x[:, 1:],
+                                      fnorm=f, converged=conv, fnorm_floor=floor,
+                                      status=status))
 
 
 def batched_surface_temperature_bg_gas(c, P_i_b, P_surf_b, bg_gas, T_guess=280.0, mesh=None,
@@ -380,7 +386,7 @@ def batched_surface_temperature_bg_gas(c, P_i_b, P_surf_b, bg_gas, T_guess=280.0
     Returns dict(T_surf (B,), P_i_surf (B, ng), fnorm, converged,
     fnorm_floor, status).
     """
-    _no_mesh(mesh)
+    P_i_b, P_surf_b, T_guess = _local_columns(mesh, P_i_b, P_surf_b, T_guess)
     column_model = make_column_fns(c)["column_model"]
     T_trop = float(c.T_trop)
     shf = float(c.surface_heat_flow)
@@ -403,5 +409,7 @@ def batched_surface_temperature_bg_gas(c, P_i_b, P_surf_b, bg_gas, T_guess=280.0
                 torch.stack([s1, P_target], dim=-1))
 
     x, f, conv, floor, status = newton_solve(residual, ladder, tol=tol, max_iter=max_iter)
-    return dict(T_surf=10.0 ** x[:, 0], P_i_surf=_with_column(P_i_b, ind, 10.0 ** x[:, 1]),
-                fnorm=f, converged=conv, fnorm_floor=floor, status=status)
+    return _gather_columns(mesh, dict(T_surf=10.0 ** x[:, 0],
+                                      P_i_surf=_with_column(P_i_b, ind, 10.0 ** x[:, 1]),
+                                      fnorm=f, converged=conv, fnorm_floor=floor,
+                                      status=status))

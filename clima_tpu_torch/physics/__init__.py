@@ -1,1 +1,1 @@
-from . import eqns, water  # noqa: F401
+from . import eqns, water, saturation  # noqa: F401

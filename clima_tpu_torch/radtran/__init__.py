@@ -1,4 +1,4 @@
-from .radtran import Radtran, ClimaRadtranWrk
+from .radtran import Radtran, ClimaRadtranWrk, RTChannelView
 from .data import (
     OpticalData,
     load_optical_data,
@@ -12,6 +12,7 @@ from .radiate import radiate_ir, radiate_solar, integrate_fluxes
 __all__ = [
     "Radtran",
     "ClimaRadtranWrk",
+    "RTChannelView",
     "OpticalData",
     "load_optical_data",
     "load_channel",

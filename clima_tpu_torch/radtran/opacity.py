@@ -19,10 +19,25 @@ import torch
 from .. import constants as const
 from ..ops.interp import hat_weights, pdot
 from ..ops.rorr import k_aee_mix, k_rorr_mix
+from ..ops import rorr_cuda
 from ..ops.rorr_cuda import k_rorr_mix_cuda
 from .data import OpticalData
 
-__all__ = ["compute_opacity"]
+__all__ = ["compute_opacity", "set_rorr_pallas_mode"]
+
+
+def set_rorr_pallas_mode(name: str):
+    """The RORR wrapper's (:func:`k_rorr_mix_cuda`) switch, the JAX package's
+    name for its choice between the Pallas kernel and XLA. Here the tensor's
+    device chooses, the CUDA kernel for a CUDA tensor and the sort twin
+    (``ops.rorr.k_rorr_mix``) for a CPU tensor, and the mode only refuses:
+    "auto" (the default) nothing, "never" a CUDA tensor (to run the twin on
+    the card, call it), "always" a CPU tensor. Past nbin 16 the sort path
+    runs whatever the mode, with its warning.
+    """
+    if name not in ("auto", "never", "always"):
+        raise ValueError(name)
+    rorr_cuda._MODE = name
 
 # pair keys (lanes x nbin^2) per chunk of the sort path past nbin 16
 _SORT_CHUNK_KEYS = 1 << 25

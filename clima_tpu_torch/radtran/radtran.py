@@ -25,7 +25,7 @@ from . import data as data_mod
 from .opacity import compute_opacity as _compute_opacity  # radiate() has an argument of that name
 from .radiate import radiate_ir, radiate_solar, integrate_fluxes
 
-__all__ = ["Radtran", "ClimaRadtranWrk"]
+__all__ = ["Radtran", "ClimaRadtranWrk", "RTChannelView"]
 
 
 def _np(x):
@@ -53,6 +53,27 @@ class ClimaRadtranWrk:
     fdn_n = property(lambda self: _np(self._fdn_n))
     amean = property(lambda self: _np(self._amean))
     tau_band = property(lambda self: _np(self._tau_band))
+
+
+class RTChannelView:
+    """Wavelength-channel metadata view (reference RTChannel) of a
+    ``data.ChannelInfo``, such as ``Radtran.ir`` or ``Radtran.sol``: its
+    wavelength and frequency edges as numpy arrays and its bin count."""
+
+    def __init__(self, info):
+        self._info = info
+
+    @property
+    def wavl(self):
+        return np.asarray(self._info.wavl)
+
+    @property
+    def freq(self):
+        return np.asarray(self._info.freq)
+
+    @property
+    def nw(self):
+        return self._info.nw
 
 
 class Radtran:

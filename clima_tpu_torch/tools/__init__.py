@@ -1,1 +1,3 @@
-"""Measurement scripts of the port, run on a CUDA card (``python -m``)."""
+"""Tools of the port: measurements on a CUDA card (``python -m
+compare_twostream_builds``) and the ranks of a multi-process run
+(``distributed_worker``, spawned with ``torch.multiprocessing``)."""

@@ -787,3 +787,79 @@ def test_climate_rhs_outside_the_tables_is_nan_on_the_card(climate_models):
         assert not bool(torch.isfinite(rhs(bad)).all())
     torch.cuda.synchronize()
     assert torch.equal(rhs(y).cpu(), want)
+
+
+def test_pallas_modes_on_the_card(dev):
+    """On card tensors "never" makes each wrapper raise, pointing to its twin,
+    without a launch, and "always" launches the kernel, as "auto" does; the
+    modes are restored afterwards."""
+    rng = np.random.default_rng(21)
+    tau, w0, gt = _atm(16, 9, dev, 21)
+    t = lambda x: torch.tensor(x, device=dev)
+    emis, bpl, wbin = t(rng.uniform(0.8, 1.0, 16)), t(rng.uniform(0.01, 1.0, (16, 10))), \
+        t(np.array([0.5, 0.5]))
+    u0s, rs, zw = t(rng.uniform(0.2, 1.0, 3)), t(rng.uniform(0.0, 0.6, 16)), \
+        t(rng.uniform(0.1, 0.5, 3))
+    tau_ks = t(10 ** rng.uniform(-6, 1, (3, 8, 10)))
+    wb = t(np.polynomial.legendre.leggauss(8)[1] / 2.0)
+    wb_e = torch.cat([torch.zeros(1, dtype=wb.dtype, device=dev), torch.cumsum(wb, 0)])
+    calls = [
+        (twostream_cuda.two_stream_ir_weighted_cuda, twostream.two_stream_ir_weighted,
+         (tau, w0, gt, emis, True, 1e-6, bpl, wbin)),
+        (twostream_cuda.two_stream_solar_multi_weighted_cuda,
+         twostream.two_stream_solar_multi_weighted, (tau, w0, gt, u0s, rs, zw, wbin)),
+        (twostream_cuda.two_stream_ir_auto, twostream.two_stream_ir,
+         (tau, w0, gt, emis, False, 1e-6, bpl)),
+        (twostream_cuda.two_stream_solar_multi_auto, twostream.two_stream_solar_multi,
+         (tau, w0, gt, u0s, rs)),
+        (twostream_cuda.two_stream_solar_auto, twostream.two_stream_solar,
+         (tau, w0, gt, u0s[:1].expand(16).contiguous(), rs)),
+        (rorr_cuda.k_rorr_mix_cuda,
+         lambda x, w, e: rorr.k_rorr_mix(x.movedim(1, -1).contiguous(), e).movedim(-1, 0),
+         (tau_ks, wb, wb_e)),
+    ]
+    try:
+        twostream.set_pallas_mode("never")
+        opacity.set_rorr_pallas_mode("never")
+        for wrapper, twin, args in calls:
+            n = wrapper.launches
+            with pytest.raises(ValueError, match="'never'.*call the twin"):
+                wrapper(*args)
+            assert wrapper.launches == n, wrapper.__name__
+        twostream.set_pallas_mode("always")
+        opacity.set_rorr_pallas_mode("always")
+        for wrapper, twin, args in calls:
+            n = wrapper.launches
+            got, want = wrapper(*args), twin(*args)
+            got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+            _close(got, want)
+            assert wrapper.launches > n, wrapper.__name__
+    finally:
+        twostream.set_pallas_mode("auto")
+        opacity.set_rorr_pallas_mode("auto")
+
+
+def test_one_rank_mesh_on_the_card_is_bitwise(dev):
+    """make_mesh() without a process group on the card (it starts none):
+    batched_toa_fluxes and batched_surface_temperature equal mesh=None
+    bitwise."""
+    import torch.distributed as dist
+
+    from clima_tpu_torch.parallel import make_mesh
+
+    tpl = make_template(nz=8, n_zenith=2)
+    c = AdiabatClimate(tpl["species"], tpl["settings"], tpl["star"], tpl["datadir"], substeps=2)
+    P_i = np.full((2, c.sp.ng), 1.0e-15)
+    P_i[:, c.species_names.index("H2O")] = 270.0e6
+    P_i[:, c.species_names.index("CO2")] = [300.0, 600.0]
+    P_i[:, c.species_names.index("N2")] = 1.0e6
+    T_surf = np.array([280.0, 290.0])
+    assert not dist.is_initialized()
+    mesh = make_mesh()
+    assert mesh.size() == 1 and mesh.device_type == "cuda" and not dist.is_initialized()
+    for got, want in ((batched_toa_fluxes(c, T_surf, P_i, mesh=mesh),
+                       batched_toa_fluxes(c, T_surf, P_i)),
+                      (batched_surface_temperature(c, P_i, mesh=mesh),
+                       batched_surface_temperature(c, P_i))):
+        for g, w in zip(got, want):
+            assert torch.equal(g, w) if torch.is_tensor(w) else g == w

@@ -50,6 +50,7 @@ MODULES = [
     "clima_tpu_torch.climate.climate",
     "clima_tpu_torch.utils.checkpoint",
     "clima_tpu_torch.utils.profiling",
+    "clima_tpu_torch.tools.distributed_worker",
     "chip_smoke",
 ]
 
@@ -120,25 +121,69 @@ def test_rce_device_signatures_match_reference():
 
 
 def test_pipeline_signatures_match_reference():
-    """batched_toa_fluxes and batched_surface_temperature take the JAX
-    package's parameters with its defaults, mesh included, and raise on a
-    mesh, which the port does not shard over."""
-    import inspect
+    """The eight batched entry points and the mesh helpers take the JAX
+    package's parameters with its defaults, mesh included;
+    initialize_distributed adds one keyword, the process group's backend."""
+    import clima_tpu.adiabat.rce_device as ref_rce_device
+    import clima_tpu.parallel as ref
 
-    import clima_tpu.parallel.pipeline as ref
-    import pytest
+    import clima_tpu_torch.adiabat.rce_device as rce_device
+    import clima_tpu_torch.parallel as port
 
-    import clima_tpu_torch.parallel.pipeline as port
+    names = ("batched_toa_fluxes", "batched_surface_temperature", "batched_make_column",
+             "batched_make_profile_bg_gas", "batched_surface_temperature_trop",
+             "batched_surface_temperature_column", "batched_surface_temperature_bg_gas",
+             "make_mesh", "shard_columns")
+    pairs = [(getattr(port, n), getattr(ref, n)) for n in names]
+    for got, want in pairs + [(rce_device.batched_rce, ref_rce_device.batched_rce)]:
+        assert _params(got) == _params(want), got.__name__
+        assert "mesh" in [p[0] for p in _params(got)] or got.__name__ in ("make_mesh",
+                                                                            "shard_columns")
+    got, want = _params(port.initialize_distributed), _params(ref.initialize_distributed)
+    assert got[:len(want)] == want
+    assert [(n, d) for n, d, _ in got[len(want):]] == [("backend", None)]
 
-    for name in ("batched_toa_fluxes", "batched_surface_temperature"):
-        got = inspect.signature(getattr(port, name)).parameters
-        want = inspect.signature(getattr(ref, name)).parameters
-        assert [(p.name, p.default, p.kind) for p in got.values()] == \
-            [(p.name, p.default, p.kind) for p in want.values()], name
-    with pytest.raises(NotImplementedError, match="mesh"):
-        port.batched_toa_fluxes(None, [280.0], [[1e6]], mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
-        port.batched_surface_temperature(None, [[1e6]], mesh=object())
+
+# modules of the JAX package that the port leaves out by design (ROADMAP
+# North star): the df64 flux path, the native build of its own C library,
+# and the Pallas kernels, which the CUDA kernels of ops/*_cuda.py replace
+BY_DESIGN = (".ops.df64", ".ops.twostream_df", ".radtran.radiate_df", ".native",
+             ".ops.pallas_")
+
+
+def _modules(pkg):
+    import pkgutil
+
+    mods = {m.name[len(pkg.__name__):]: m.name
+            for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")}
+    mods[""] = pkg.__name__
+    return mods
+
+
+def test_every_all_matches_reference():
+    """Every module of the JAX package, but the by-design exclusions, has a
+    module of the port whose __all__ holds every name of the JAX module's,
+    each defined."""
+    import importlib
+
+    import clima_tpu_torch
+
+    ref_mods, port_mods = _modules(clima_tpu), _modules(clima_tpu_torch)
+    checked = 0
+    for key, name in sorted(ref_mods.items()):
+        if key.startswith(BY_DESIGN):
+            continue
+        assert key in port_mods, f"clima_tpu{key} has no port module"
+        want = getattr(importlib.import_module(name), "__all__", None)
+        if want is None:
+            continue
+        port = importlib.import_module(port_mods[key])
+        missing = set(want) - set(getattr(port, "__all__", ()))
+        assert not missing, f"{port.__name__}.__all__ lacks {sorted(missing)}"
+        for n in want:
+            assert getattr(port, n, None) is not None, f"{port.__name__}.{n}"
+        checked += 1
+    assert checked >= 30  # 38 of the JAX package's modules have an __all__
 
 
 def _params(fn):

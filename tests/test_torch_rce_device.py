@@ -28,7 +28,8 @@ host ``RCE``.
   package's own device solver; the gaps are printed). Lanes are independent:
   a lane's result does not move with its partner's data (rtol 1e-12), and
   B=2 equals two B=1 runs to rtol 1e-7 (see that test for why not 1e-12 on
-  the CPU). ``chunk_iters`` reaches the same fixed point; ``mesh`` raises.
+  the CPU). ``chunk_iters`` reaches the same fixed point. (``mesh`` is
+  tested in test_torch_distributed.py.)
 - Slow: against the JAX package's ``batched_rce`` itself (converged, status
   and masks equal, T at rtol 1e-6; the JAX side traces and compiles its
   vmapped program for several minutes).
@@ -340,13 +341,6 @@ def test_batched_rce_chunk_iters_reaches_the_same_fixed_point(models, warm_start
                                   batched["convecting_with_below"][0].numpy())
     np.testing.assert_allclose(out["T"][0].numpy(), batched["T"][0].numpy(), atol=0.05)
     assert abs(float(out["T_surf"][0]) - float(batched["T_surf"][0])) < 0.05
-
-
-def test_batched_rce_mesh_raises(models):
-    _, c = models
-    P_i = earth_like_P_i(c)[None]
-    with pytest.raises(NotImplementedError, match="mesh"):
-        rce_device.batched_rce(c, P_i, [280.0], T_RAMP[None, 1:], mesh=object())
 
 
 def test_result_keys_match_reference(models, batched):

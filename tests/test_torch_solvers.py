@@ -347,15 +347,3 @@ def test_batched_surface_temperature_bg_gas_matches_reference(models, reference)
     got = batched_surface_temperature_bg_gas(c, *args, T_guess=260.0)
     assert got["converged"].all()
     assert_same_solve(got, want, ["T_surf", "P_i_surf"])
-
-
-@pytest.mark.parametrize("solve, args", [
-    (batched_make_column, ([280.0], [[1.0]])),
-    (batched_make_profile_bg_gas, ([280.0], [[1.0]], [1.0e6], "N2")),
-    (batched_surface_temperature_trop, ([[1.0]],)),
-    (batched_surface_temperature_column, ([[1.0]],)),
-    (batched_surface_temperature_bg_gas, ([[1.0]], [1.0e6], "N2")),
-], ids=lambda v: getattr(v, "__name__", ""))
-def test_mesh_is_not_ported(solve, args):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        solve(object(), *args, mesh=object())
