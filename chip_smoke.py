@@ -83,7 +83,8 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    graph captures, peak memory, the kernels' launches and times at the
    path's shapes and #1's largest row count;
 7. the batched solver path: ``parallel.batched_surface_temperature_column``
-   on phase 5's model over the entry batch's 8 columns, the targets their
+   on phase 5's template cut to nz=20 (SOLVER_NZ) over the entry batch's 8
+   columns, the targets their
    inventories N_atmos + N_surface from ``profile_only`` on the card (the
    joint system of T_surf and the ng partial pressures, each residual one
    batched ``column_model`` call through RORR, #1 and #2). Every lane must
@@ -148,18 +149,43 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
     must equal phase 5's bitwise. The three kernels must launch in every
     rank's every call; the ranks run together, and the phase's seconds are
     printed.
+11. the examples and the tools: each of ``clima_tpu_torch.examples``'
+    ``main()`` at its own size (``modern_earth_radtran``: Radtran at nz=50
+    with 8 zenith angles and a haze, its custom-opacity round trip;
+    ``tutorial_adiabat_climate``: TOA fluxes, ``surface_temperature`` and
+    ``RCE`` at nz=20; ``early_mars``: ``batched_surface_temperature`` over
+    six CO2 inventories on ``make_mesh()``; ``climate_evolve``: ``Climate``
+    at nz=20 over logspace(4, 6, 10) s), each finite, converged where it
+    reports it, its files read back, each launching #1, #2 and RORR, none
+    calling a twin, and each kernel then held to its twin on the last inputs
+    the example gave it at each of its shapes (as phases 7-9); then each
+    tool once: ``tools.roofline`` at phase 3b's shapes (every kernel timed
+    within its bound, all six launched), ``tools.validation`` at nz=8: its
+    kernel parity (each output's largest difference over its largest value
+    within the tool's fixed limit, 1e-9 or 2e-9 for #4) and its device RCE
+    against the CPU's host RCE in a child process (every lane status 0; the
+    CPU's mask, T_surf within 5e-3 K and T within 0.1 K, the tool's
+    RCE_LIMITS), ``tools.rce_bench`` over 4 lanes at nz=8 (every lane status
+    0) and ``tools.scaling`` over one NCCL rank (toa, 3 timed calls; the
+    rank exits 0 and launches the three kernels). Each call's seconds are
+    printed. ``early_mars`` (started with phase 10) and
+    ``tutorial_adiabat_climate`` run each in a process of its own on the
+    card, and the validation tool's CPU reference in a child process, each
+    running beside the rest (the paths are host-bound: the card idles
+    between launches).
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after (the sharded path's in each rank's process); the kernels of
 a path must each have launched. The second-to-last line is a JSON object
 with each kernel's numbers (its launches summed over the radtran, adiabat,
-RCE, solver, device RCE, Climate and sharded paths); the last line is the
-device JSON.
+RCE, solver, device RCE, Climate, sharded and phase 11's paths); the last
+line is the device JSON.
 """
 
 import collections
 import contextlib
 import functools
+import io
 import json
 import multiprocessing
 import os
@@ -197,19 +223,24 @@ from clima_tpu_torch import parallel  # noqa: E402
 from clima_tpu_torch.parallel import make_column_fns, solvers  # noqa: E402
 from clima_tpu_torch.physics import eqns  # noqa: E402
 from clima_tpu_torch.radtran import Radtran, opacity, radiate  # noqa: E402
-from clima_tpu_torch.tools import distributed_worker  # noqa: E402
+from clima_tpu_torch.config.atmosphere_file import AtmosphereFile  # noqa: E402
+from clima_tpu_torch.examples import (climate_evolve, early_mars,  # noqa: E402
+                                      modern_earth_radtran, tutorial_adiabat_climate)
+from clima_tpu_torch.tools import (distributed_worker, rce_bench, roofline,  # noqa: E402
+                                   scaling, validation)
 
 RTOL, ATOL = 1e-9, 1e-12
 B_COLS, K_INNER, NZ_TEMPLATE, N_ZEN = 256, 4, 100, 4
 NZ_R = 2 * NZ_TEMPLATE + 2  # flagship radiative grid (doubled + ghosts)
 ROOFLINE_ROWS, ROOFLINE_NZ = 256 * 60 * 8, 202  # scripts/roofline.py:69-71
 ENTRY_B, ENTRY_NZ = 8, 50  # __graft_entry__.entry
+# phase 7's depth, cut from the entry model's 50 layers to keep the script
+# within its time with phase 11 (the same bins, species and 4 zenith angles)
+SOLVER_NZ = 20
 RCE_NZ, RCE_SUBSTEPS = 20, 6  # tests/test_rce.py:17-18's depth
 # phase 10's RCE lanes at a depth cut to 12, which keeps the script within
 # half its time limit
 SHARDED_RCE_NZ = 12
-HBM_BYTES_PER_S, FP64_OPS_PER_S = 3.35e12, 34e12  # H100 SXM data sheet (non-tensor FP64)
-F64 = 8
 
 # each wrapper, its CUDA kernel (the __global__ function in ``source``) and
 # the TPU kernel it replaces
@@ -278,24 +309,11 @@ def event_ms(fn, device, reps=5):
     return start.elapsed_time(end) / reps
 
 
-def set_bound(name, nbytes, ops):
-    """The least time the card could take: bytes over the memory rate or
-    float64 operations over the FP64 peak, whichever is larger."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP64_OPS_PER_S * 1e3
-    RESULTS[name]["bound_ms"] = max(t_bytes, t_ops)
-    RESULTS[name]["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-
-
-# float64 operations per (row, layer) of the two-stream kernels' arithmetic
-# (exp, sqrt and a divide count as one each; the pass-3 recomputation is not
-# counted): layer coefficients, the 2x2-block elimination, back substitution
-# and the edge fluxes. Solar: 25 shared + 25 per zenith for the coefficients
-# and sources, 25 for the elimination, 28 per zenith for elimination,
-# back substitution and fluxes, +10 per zenith for amean.
-def twostream_ops(solar, nzen=1, amean=False):
-    if not solar:
-        return 30 + 25 + 12 + 4 + 12
-    return 25 + 25 * nzen + 25 + nzen * (28 + (10 if amean else 0))
+def set_bound(name, work):
+    """The least time the card could take for ``work`` (bytes, float64
+    operations), as ``tools/roofline.py`` counts it: bytes over the memory
+    rate or operations over the FP64 peak, whichever is larger."""
+    RESULTS[name]["bound_ms"], RESULTS[name]["bound_by"] = roofline.bound(*work)
 
 
 def compare(name, got, want, rtol=RTOL, atol=ATOL):
@@ -403,9 +421,7 @@ def phase_kernels(device, B=B_COLS, nz=NZ_R, nw_ir=28, nw_sol=32, nw=51, nG=8,
     r = RESULTS["two_stream_ir_weighted"]
     r["ms"] = event_ms(lambda: twostream_cuda.two_stream_ir_weighted_cuda(*ir_args(True)), device, reps)
     r["plain_ms"] = event_ms(lambda: twostream.two_stream_ir_weighted(*ir_args(True)), device, 2)
-    set_bound("two_stream_ir_weighted",
-              F64 * (3 * rows * nz + rows + rows * (nz + 1) + nG + 2 * (rows // nG) * (nz + 1)),
-              rows * nz * twostream_ops(False))
+    set_bound("two_stream_ir_weighted", roofline.ir_weighted_work(rows, nz, nG))
     print(f"  IR rows={rows} nz={nz}: kernel {r['ms']:.3f} ms, twin {r['plain_ms']:.3f} ms, "
           f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
     # float32, timed on the same inputs: the output must be finite, and its
@@ -494,8 +510,7 @@ def phase_kernels(device, B=B_COLS, nz=NZ_R, nw_ir=28, nw_sol=32, nw=51, nG=8,
     r["plain_ms"] = event_ms(lambda: twostream.two_stream_solar_multi_weighted(
         *sol_args, with_amean=False), device, 2)
     set_bound("two_stream_solar_multi_weighted",
-              F64 * (3 * rows * nz + rows + 2 * N_ZEN + nG + 2 * (rows // nG) * (nz + 1)),
-              rows * nz * twostream_ops(True, N_ZEN))
+              roofline.solar_weighted_work(rows, nz, N_ZEN, nG))
     print(f"  solar rows={rows} nz={nz} nzen={N_ZEN}: kernel {r['ms']:.3f} ms (amean on "
           f"{sol_ms(sol_args, True):.3f} ms), twin {r['plain_ms']:.3f} ms, bound "
           f"{r['bound_ms']:.3f} ms ({r['bound_by']})")
@@ -546,17 +561,12 @@ def phase_kernels(device, B=B_COLS, nz=NZ_R, nw_ir=28, nw_sol=32, nw=51, nG=8,
         sync(device)
         t_kernel = event_ms(lambda: rorr_cuda.k_rorr_mix_cuda(tks, wb, wb_e), device, reps)
         t_twin = event_ms(lambda: twin(tks, wb_e), device, 1)
-        # the function's own work: per lane and species pair, nbin^2 key
-        # sums, a sort of the nbin^2 keys (n log2 n compares), the weight
-        # prefix sum and the overlap rebin (~2 operations per key)
-        npair = nbin * nbin
-        nbytes = F64 * (3 * nbin * R + nbin * R + 2 * nbin + 1)
-        ops = 2 * R * npair * (1 + np.log2(npair) + 1 + 2)
-        bound = max(nbytes / HBM_BYTES_PER_S, ops / FP64_OPS_PER_S) * 1e3
+        work = roofline.rorr_work(R, nbin)
+        bound = roofline.bound(*work)[0]
         if nbin == 8:
             r = RESULTS["k_rorr_mix"]
             r["ms"], r["plain_ms"] = t_kernel, t_twin
-            set_bound("k_rorr_mix", nbytes, ops)
+            set_bound("k_rorr_mix", work)
         print(f"  RORR nbin={nbin} R={R} float64: kernel {t_kernel:.3f} ms, sort twin "
               f"{t_twin:.3f} ms, bound {bound:.3f} ms")
         if nbin == 8:
@@ -723,14 +733,9 @@ def phase_dispatchers(device, rows=ROOFLINE_ROWS, nz=ROOFLINE_NZ, nzen=N_ZEN, re
         "two_stream_solar": (lambda: twostream_cuda.two_stream_solar_auto(tau, w0, gt, u0, rs),
                              lambda: twostream.two_stream_solar(tau, w0, gt, u0, rs)),
     }
-    set_bound("two_stream_ir", F64 * (3 * rows * nz + rows + rows * (nz + 1) + 2 * rows * (nz + 1)),
-              rows * nz * twostream_ops(False))
-    # bytes and operations of the multi-zenith solve at n zenith angles
-    multi_work = lambda n: (F64 * (3 * rows * nz + rows + n + 3 * n * rows * (nz + 1) + n * rows),
-                            rows * nz * twostream_ops(True, n, amean=True))
-    set_bound("two_stream_solar_multi", *multi_work(nzen))
-    set_bound("two_stream_solar", F64 * (3 * rows * nz + 2 * rows + 3 * rows * (nz + 1) + rows),
-              rows * nz * twostream_ops(True, 1, amean=True))
+    set_bound("two_stream_ir", roofline.ir_work(rows, nz))
+    set_bound("two_stream_solar_multi", roofline.solar_multi_work(rows, nz, nzen))
+    set_bound("two_stream_solar", roofline.solar_work(rows, nz))
     for name, (kernel, twin) in timed.items():
         r = RESULTS[name]
         r["ms"] = event_ms(kernel, device, reps)
@@ -740,8 +745,7 @@ def phase_dispatchers(device, rows=ROOFLINE_ROWS, nz=ROOFLINE_NZ, nzen=N_ZEN, re
               f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
     ms12 = event_ms(lambda: twostream_cuda.two_stream_solar_multi_auto(tau, w0, gt, u0s12, rs),
                     device, reps)
-    nbytes12, ops12 = multi_work(12)
-    bound12 = max(nbytes12 / HBM_BYTES_PER_S, ops12 / FP64_OPS_PER_S) * 1e3
+    bound12 = roofline.bound(*roofline.solar_multi_work(rows, nz, 12))[0]
     torch.cuda.empty_cache()
     print(f"  two_stream_solar_multi at 12 zenith angles (one launch): kernel {ms12:.3f} ms, "
           f"bound {bound12:.3f} ms")
@@ -1000,7 +1004,7 @@ def entry_batch(c, B=ENTRY_B):
 @functools.lru_cache(maxsize=None)
 def _entry_model(device):
     """The entry workload's model, built once per process and device (phases
-    5 and 7 share the card's)."""
+    5 and 10 share the card's)."""
     tpl = make_template(nz=ENTRY_NZ, n_zenith=N_ZEN)
     return AdiabatClimate(tpl["species"], tpl["settings"], tpl["star"], tpl["datadir"],
                           device=device)
@@ -1050,24 +1054,16 @@ def march_ops_per_profile(c, T_surf, P_i, nz):
 
 def path_bounds(c, B, B_ir=None):
     """The bound in ms of each of the three kernels of model ``c``'s radiate
-    call over B columns (the IR kernel over B_ir columns when given): bytes
-    over the memory rate or float64 operations over the FP64 peak."""
+    call over B columns (the IR kernel over B_ir columns when given), from
+    ``tools/roofline.py``'s counts."""
     nz_r, nG, nw_ir, nw_sol, nw = c.nz_r, c.rad.op.kset.nbin, c.rad.ir.nw, c.rad.sol.nw, c.rad.op.nw
     nzen = len(c.rad.zenith_u)
     rows_ir, rows_sol, R = (B_ir or B) * nw_ir * nG, B * nw_sol * nG, B * nw * nz_r
-    work = {
-        "two_stream_ir_weighted": (F64 * (3 * rows_ir * nz_r + rows_ir + rows_ir * (nz_r + 1) + nG
-                                          + 2 * (rows_ir // nG) * (nz_r + 1)),
-                                   rows_ir * nz_r * twostream_ops(False)),
-        "two_stream_solar_multi_weighted": (
-            F64 * (3 * rows_sol * nz_r + rows_sol + 2 * nzen + nG
-                   + 2 * (rows_sol // nG) * (nz_r + 1)),
-            rows_sol * nz_r * twostream_ops(True, nzen)),
-        "k_rorr_mix": (F64 * (4 * nG * R + 2 * nG + 1),
-                       2 * R * nG * nG * (1 + np.log2(nG * nG) + 1 + 2)),
-    }
-    return {name: max(nbytes / HBM_BYTES_PER_S, ops / FP64_OPS_PER_S) * 1e3
-            for name, (nbytes, ops) in work.items()}
+    work = {"two_stream_ir_weighted": roofline.ir_weighted_work(rows_ir, nz_r, nG),
+            "two_stream_solar_multi_weighted": roofline.solar_weighted_work(rows_sol, nz_r, nzen,
+                                                                            nG),
+            "k_rorr_mix": roofline.rorr_work(R, nG, len(c.rad.op.k))}
+    return {name: roofline.bound(*w)[0] for name, w in work.items()}
 
 
 def phase_adiabat_path(device, smi):
@@ -1178,7 +1174,7 @@ def _adiabat_on_card(device, smi, conn):
     try:
         T_card = c.surface_temperature(P_np[0], T_guess=280.0)
     finally:
-        del c.TOA_fluxes  # the model is phase 7's too
+        del c.TOA_fluxes  # the model is phase 10's too
     solve_s = time.perf_counter() - t0
     print(f"  surface_temperature on the card: {T_card:.10f} K in {solve_s:.2f} s, "
           f"{evals['toa']} TOA_fluxes evaluations")
@@ -1404,14 +1400,22 @@ def _rce_on_card(device, smi, conn):
     return launches, solved
 
 
+@functools.lru_cache(maxsize=None)
+def _solver_model(device):
+    """Phase 7's model: the entry workload's template at SOLVER_NZ layers."""
+    tpl = make_template(nz=SOLVER_NZ, n_zenith=N_ZEN)
+    return AdiabatClimate(tpl["species"], tpl["settings"], tpl["star"], tpl["datadir"],
+                          device=device)
+
+
 def _cpu_column_at(conn):
-    """Child process: the port on the CPU. Builds the entry model, receives
+    """Child process: the port on the CPU. Builds phase 7's model, receives
     the card's solution (T_surf, P_i_surf) and the targets N, evaluates
     column_model and profile_only there and sends (ISR, OLR, N from each,
     the residual norm, seconds, error)."""
     try:
         torch.set_num_threads(2)
-        c = _entry_model("cpu")
+        c = _solver_model("cpu")
         fns = make_column_fns(c)
         T_surf, P_i, N_target = (torch.tensor(a) for a in conn.recv())
         t0 = time.perf_counter()
@@ -1440,7 +1444,7 @@ def column_residual_norm(m, N_target, surface_heat_flow):
 
 def phase_solver_path(device, smi):
     print(f"== phase 7: the batched solver path (batched_surface_temperature_column: "
-          f"B={ENTRY_B}, nz={ENTRY_NZ}, {N_ZEN} zenith angles, float64)")
+          f"B={ENTRY_B}, nz={SOLVER_NZ}, {N_ZEN} zenith angles, float64)")
     ctx = multiprocessing.get_context("spawn")
     conn, child_conn = ctx.Pipe()
     child = ctx.Process(target=_cpu_column_at, args=(child_conn,))
@@ -1459,7 +1463,7 @@ def phase_solver_path(device, smi):
 
 def _solver_on_card(device, smi, conn):
     t_phase = time.perf_counter()
-    c = _entry_model(None)
+    c = _solver_model(None)
     assert c.device.type == "cuda"
     T_np, P_np = entry_batch(c)
     fns = make_column_fns(c)
@@ -2089,6 +2093,228 @@ def phase_sharded_path(smi):
     return launches
 
 
+EXAMPLES = {"modern_earth_radtran": modern_earth_radtran,
+            "tutorial_adiabat_climate": tutorial_adiabat_climate,
+            "early_mars": early_mars, "climate_evolve": climate_evolve}
+
+
+def _check_example(name, out):
+    """Raise unless the example's numbers are finite, what it reports as
+    converged did converge, and the files it wrote read back."""
+    finite = lambda *xs: all(bool(np.isfinite(np.asarray(x, dtype=np.float64)).all()) for x in xs)
+    if name == "modern_earth_radtran":  # main itself asserts the custom-opacity round trip
+        with np.load(out["spectra_file"]) as d:
+            ok = finite(out["toa_solar_fdn"], out["olr"], out["f_total"], out["f_total_custom"],
+                        out["f_total_restored"], *(d[k] for k in d.files))
+    elif name == "tutorial_adiabat_climate":
+        atm = AtmosphereFile(out["atmosphere_file"])
+        ok = (out["converged"] and finite(out["ISR"], out["OLR"], out["T_surf"], out["T"])
+              and atm.nz == len(out["T"]) and finite(*atm.columns.values()))
+    elif name == "early_mars":
+        # the batched damped Newton (the JAX package's, 30 steps) leaves some
+        # CO2-rich columns unconverged, its result then their last iterate:
+        # every column finite, the thin-CO2 ones converged
+        ok = finite(out["T_surf"], out["residual"]) and bool(out["converged"][:3].all())
+    else:
+        snaps = load_evolve_file(out["evolve_file"])
+        ok = (out["converged"] and len(snaps["t"]) == len(climate_evolve.T_EVAL)
+              and finite(*snaps.values()))
+    if not ok:
+        raise AssertionError(f"the {name} example gave non-finite, unconverged or unreadable "
+                             f"results")
+
+
+def _recorded_main(name, last, **kwargs):
+    """One example's ``main()`` with the kernels' inputs kept in ``last``
+    (:func:`recording`) and the twins refused (:func:`no_twins`)."""
+    with recording(last), no_twins():
+        return EXAMPLES[name].main(**kwargs)
+
+
+def _example_in_child(conn, name, root):
+    """Child process: one example's ``main()`` on the card, then each kernel
+    against its twin on the inputs the example gave it; sends (its result,
+    the kernels' launches in main(), seconds, what main() printed, what the
+    twin comparisons printed, error)."""
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        _reset(KERNELS)
+        printed, checked, last = io.StringIO(), io.StringIO(), {}
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            out = _recorded_main(name, last, root=root)
+        torch.cuda.synchronize()
+        seconds, n = time.perf_counter() - t0, _launches(KERNELS)
+        with contextlib.redirect_stdout(checked):
+            check_against_twins(last, n, f"the {name} example")
+        conn.send((out, n, seconds, printed.getvalue(), checked.getvalue(), None))
+    except Exception as e:  # reported to the parent, which raises
+        conn.send((None, None, None, None, None, repr(e)))
+    finally:
+        conn.close()
+
+
+def start_examples(names, workdir):
+    """Start each example in a process of its own on the card, writing under
+    ``workdir``; returns {name: (process, its pipe)}."""
+    ctx, children = multiprocessing.get_context("spawn"), {}
+    for name in names:
+        root = os.path.join(workdir, name)
+        os.makedirs(root)
+        conn, child_conn = ctx.Pipe(duplex=False)
+        proc = ctx.Process(target=_example_in_child, args=(child_conn, name, root))
+        proc.start()
+        child_conn.close()
+        children[name] = (proc, conn)
+    return children
+
+
+# the examples that run each in a process of its own on the card, beside
+# the rest (their solves are host-bound launches, as is the rest):
+# early_mars (~200 s) from phase 10's start, tutorial_adiabat_climate from
+# phase 11's
+EARLY_EXAMPLES = ("early_mars",)
+CHILD_EXAMPLES = EARLY_EXAMPLES + ("tutorial_adiabat_climate",)
+
+
+def phase_examples_and_tools(device, smi, workdir, children):
+    """``children``: the examples of EARLY_EXAMPLES, started before phase 10
+    by :func:`start_examples` under ``workdir``; the phase adds its own."""
+    print("== phase 11: the four examples at their own sizes and the four tools, each once")
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(KERNELS, 0)
+
+    def counted(label, fn, *args, **kwargs):
+        """(fn's result, its launches by this process's wrappers, added to the
+        phase's, and what it printed, shown only where it raises)."""
+        _reset(KERNELS)
+        sync(device)
+        t0 = time.perf_counter()
+        printed = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(printed):
+                out = fn(*args, **kwargs)
+        except BaseException:
+            print(printed.getvalue())
+            raise
+        sync(device)
+        n = _launches(KERNELS)
+        for k, v in n.items():
+            launches[k] += v
+        print(f"  {label}: {time.perf_counter() - t0:.1f} s, kernel launches "
+              f"{ {k: v for k, v in n.items() if v} }", flush=True)
+        return out, n, printed.getvalue()
+
+    def example_done(name, out, n, printed):
+        print("    " + "\n    ".join(printed.splitlines()[-8:]))
+        if min(n[k] for k in RADTRAN_KERNELS) < 1:
+            raise AssertionError(f"the {name} example did not launch each of #1, #2 and RORR: {n}")
+        _check_example(name, out)
+
+    # started first, to run beside the rest: the CPU reference of the
+    # validation tool's device RCE, and the examples of CHILD_EXAMPLES not
+    # yet started, each in a process of its own
+    reference = validation.start_reference(8)
+    try:
+        children.update(start_examples([n for n in CHILD_EXAMPLES if n not in children],
+                                       workdir))
+        for name in EXAMPLES:
+            if name not in CHILD_EXAMPLES:
+                root = os.path.join(workdir, name)
+                os.makedirs(root)
+                last = {}
+                out, n, printed = counted(f"examples.{name}.main()", _recorded_main, name,
+                                          last, root=root)
+                example_done(name, out, n, printed)
+                # each kernel against its twin at each shape the example gave it
+                check_against_twins(last, n, f"the {name} example")
+                del last
+        phase_tools(device, counted, launches, reference)
+    finally:  # validation.main stops and removes it; here only where it never ran
+        if reference.proc.poll() is None:
+            reference.proc.kill()
+            reference.proc.wait()
+        shutil.rmtree(os.path.dirname(reference.path), ignore_errors=True)
+    for name, (_, conn) in children.items():
+        out, n, seconds, printed, checked, err = conn.recv()
+        if err is not None:
+            raise AssertionError(f"the {name} example failed in its process: {err}")
+        for k, v in n.items():
+            launches[k] += v
+        when = "phase 10's" if name in EARLY_EXAMPLES else "the phase's"
+        print(f"  examples.{name}.main() (a process of its own, from {when} start): "
+              f"{seconds:.1f} s, kernel launches { {k: v for k, v in n.items() if v} }")
+        example_done(name, out, n, printed)
+        print(checked, end="")
+    print(f"  kernel launches on phase 11's paths: {launches}")
+    print(f"  phase 11: {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return launches
+
+
+def phase_tools(device, counted, launches, reference):
+    """Phase 11's tools, each once; ``reference`` is the validation tool's
+    CPU reference, started by ``validation.start_reference``."""
+    # roofline at phase 3b's shapes: every kernel, timed, against its bound
+    rows, n, _ = counted("tools.roofline (--columns 256 --nz 202)", roofline.main,
+                         ["--columns", "256", "--nz", str(ROOFLINE_NZ), "--iters", "3"])
+    for r in rows:
+        print(f"    {r['kernel']:<40} {r['time_ms']:9.4f} ms, {r['achieved_GBs']:8.1f} GB/s, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+              f"{100 * r['share_of_bound']:.1f} % of it")
+        if not (np.isfinite(r["time_ms"]) and 0.0 < r["share_of_bound"] <= 1.0):
+            raise AssertionError(f"roofline: {r['kernel']} ran in {r['time_ms']} ms against a "
+                                 f"bound of {r['bound_ms']} ms")
+    if min(n.values()) < 1:
+        raise AssertionError(f"the roofline tool did not launch every kernel: {n}")
+
+    # validation: the kernel parity (its launches counted with the rest),
+    # then the device RCE against the CPU's host RCE
+    val, _, _ = counted("tools.validation (--nz 8: the kernel parity, the device RCE against "
+                        "its CPU reference)", validation.main, ["--nz", "8"],
+                        started=[reference])
+    parity = val["kernel_parity"]
+    print("  tools.validation kernel parity (largest difference over the largest value; the "
+          "twin's own PCR-vs-Thomas spread; limit):")
+    for k, lim in val["kernel_parity_limits"].items():
+        floor = parity.get(k[:-len("maxrel")] + "floor")
+        print(f"    {k[:-len('_maxrel')]:<20} {parity[k]:.3e}  "
+              f"{'-' if floor is None else f'{floor:.3e}'}  {lim:.1e}")
+    if not (val["kernel_parity_ok"] and validation.parity_within(parity)[0]):
+        raise AssertionError("validation: a kernel disagrees with its twin")
+    rec, vs = val["device_rce"], val["device_rce"]["vs_cpu_f64"]
+    print(f"    device RCE: status {rec['status']}, {rec['solve_iters']} solve iterations, "
+          f"{rec['wall_s_total']:.2f} s; against the CPU's host RCE (converged "
+          f"{val['cpu_f64']['converged']}, {val['cpu_f64']['wall_s']:.1f} s): T_surf "
+          f"{vs['dT_surf_K']:+.3e} K, max |dT| {vs['dT_max_K']:.3e} K, masks equal "
+          f"{vs['mask_equal']}")
+    if not (rec["within_limits"] and validation.rce_within(rec, val["cpu_f64"]["converged"])):
+        raise AssertionError(f"validation: the device RCE failed or left the CPU reference's "
+                             f"limits {validation.RCE_LIMITS}")
+
+    bench, _, _ = counted("tools.rce_bench (--sizes 4 --nz 8)", rce_bench.main,
+                          ["--sizes", "4", "--nz", "8"])
+    run = bench["runs"][0]
+    print(f"    B=4: status {run['status']}, second run {run['second']['wall_s']:.2f} s "
+          f"({run['second']['capture_s']:.2f} s capturing {run['second']['captures']} graphs): "
+          f"{run['columns_per_s_with_capture']:.4f} columns/s, "
+          f"{run['columns_per_s_without_capture']:.4f} without capture; "
+          f"solve iterations {run['solve_iters']}")
+    if not (run["status"] == [0] * 4 and run["finite"]):
+        raise AssertionError(f"rce_bench: a lane did not converge: {run['status']}")
+
+    recs, _, _ = counted("tools.scaling (--devices 1 --workloads toa --iters 3)", scaling.main,
+                         ["--devices", "1", "--workloads", "toa", "--iters", "3"])
+    rec = recs[0]
+    for k, v in rec["launches"].items():  # made in the rank's own process
+        launches[k] += v
+    print(f"    one rank: median {rec['wall_s_median']:.3f} s a call, "
+          f"{rec['columns_per_s']:.3f} columns/s, exit codes {rec['rank_exitcodes']}, "
+          f"kernel launches {rec['launches']}")
+    if rec["rank_exitcodes"] != [0] or min(rec["launches"].values()) < 1:
+        raise AssertionError(f"scaling: the rank failed or launched no kernel: {rec}")
+
+
 def main():
     t0 = time.perf_counter()
     device, smi = phase_environment()
@@ -2098,8 +2324,20 @@ def main():
     paths = [phase_radtran_path(device), phase_adiabat_path(device, smi)]
     rce_launches, rce_state = phase_rce_path(device, smi)
     paths += [rce_launches, phase_solver_path(device, smi),
-              phase_device_rce_path(device, smi, rce_state), phase_climate_path(device, smi),
-              phase_sharded_path(smi)]
+              phase_device_rce_path(device, smi, rce_state), phase_climate_path(device, smi)]
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    children = {}
+    try:
+        # phase 11's longest example, on the card beside phases 10 and 11
+        children.update(start_examples(EARLY_EXAMPLES, workdir))
+        paths += [phase_sharded_path(smi),
+                  phase_examples_and_tools(device, smi, workdir, children)]
+    finally:
+        for proc, _ in children.values():
+            if proc.is_alive():
+                proc.kill()
+            proc.join()
+        shutil.rmtree(workdir, ignore_errors=True)
     for path in paths:
         for name, n in path.items():
             launches[name] = launches.get(name, 0) + n

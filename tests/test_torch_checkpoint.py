@@ -19,6 +19,8 @@ from clima_tpu_torch.utils import checkpoint
 from clima_tpu_torch.utils.checkpoint import (load_pytree, load_state, restore_state,
                                               save_pytree, save_state)
 from clima_tpu_torch.utils.profiling import Timer, time_fn, trace
+from test_torch_threads import _one_torch_thread  # noqa: F401 (autouse: one CPU thread)
+
 
 PACKAGES = {"port": checkpoint, "jax": ref_checkpoint}
 

@@ -1,7 +1,9 @@
 """The time-stepping Climate model of the PyTorch port against clima_tpu's
 (float64, CPU): the atmosphere file, the constructor's column, the host and
-device right-hand sides, the DOP853 and rk45_device snapshot streams, files
-read across the two packages, and the errors.
+device right-hand sides, and the errors. The DOP853 and rk45_device snapshot
+streams, and their files read across the two packages, are in
+test_torch_climate_evolve.py (a file of its own, so that the test workers
+run it beside this one).
 
 Both models are built from one template (nz=10, 2 zenith angles, the
 atmosphere column and settings of tests/test_climate.py). The fluxes of the two packages
@@ -22,7 +24,6 @@ import torch
 
 from clima_tpu import constants as ref_const
 from clima_tpu.climate import Climate as RefClimate
-from clima_tpu.climate import load_evolve_file as ref_load_evolve_file
 from clima_tpu.climate.climate import CP_GROUND, DZ_GROUND, RHO_GROUND
 from clima_tpu.config import AtmosphereFile as RefAtmosphereFile
 from clima_tpu.config import unpack_atmospherefile as ref_unpack
@@ -32,14 +33,15 @@ from clima_tpu.physics import eqns as ref_eqns
 from clima_tpu.utils.errors import ClimaException as RefClimaException
 
 from clima_tpu_torch import ClimaException
-from clima_tpu_torch.climate import Climate, load_evolve_file
+from clima_tpu_torch.climate import Climate
 from clima_tpu_torch.config import AtmosphereFile, unpack_atmospherefile
 from clima_tpu_torch.data import climate_settings_yaml_text, write_atmosphere_file
+from test_torch_threads import _one_torch_thread  # noqa: F401 (autouse: one CPU thread)
+
 
 NZ, N_ZEN = 10, 2
 EPS_FLUX = 1e-12
 T_EVAL = np.array([1.0e4, 5.0e4, 1.0e5])
-STREAM = ("nz", "z", "nt", "t", "T", "f_total", "fup_ir", "fdn_ir", "fup_sol", "fdn_sol", "P")
 FLUXES = ("f_total", "fup_ir", "fdn_ir", "fup_sol", "fdn_sol")
 
 
@@ -188,108 +190,6 @@ def test_device_fns_match_reference(models):
         want = jax.jit(fluxes_ref)(y[0], jnp.asarray(y[1:]))
         _close_fluxes([g[b].numpy() for g in got], want, 1e-10, f"column {b}")
         assert all(g.shape == (2, c.nz_r + 1) for g in got)
-
-
-@pytest.fixture(scope="module")
-def dop853_streams(models, tmp_path_factory):
-    ref, c = models
-    d = tmp_path_factory.mktemp("dop853")
-    files = str(d / "ref.npz"), str(d / "port.npz")
-    assert ref.evolve(files[0], 0.0, ref.T_init, T_EVAL, overwrite=True)
-    assert c.evolve(files[1], 0.0, c.T_init, T_EVAL, overwrite=True)
-    return files
-
-
-def test_dop853_stream_matches_reference(models, dop853_streams):
-    ref, c = models
-    want, got = ref_load_evolve_file(dop853_streams[0]), load_evolve_file(dop853_streams[1])
-    assert sorted(got) == sorted(want) == sorted(STREAM)
-    for k in STREAM:
-        assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, k
-    assert got["T"].shape == (3, c.neq) and got["f_total"].shape == (3, c.nz + 1)
-    assert int(got["nz"]) == NZ and int(got["nt"]) == 3
-    np.testing.assert_allclose(got["T"], want["T"], rtol=1e-8)
-    _close_fluxes([got[k] for k in FLUXES], [want[k] for k in FLUXES], 1e-8)
-    for k in ("P", "z", "t"):
-        np.testing.assert_allclose(got[k], want[k], rtol=1e-12, atol=0, err_msg=k)
-    st = c.evolve_stats
-    assert st["rejected"] == st["attempted"] - st["accepted"] >= 0 and st["accepted"] > 0
-    assert st["rhs_evaluations"] > 12 * st["attempted"]  # DOP853: 12 stages an attempt
-
-
-def test_evolve_files_load_in_either_package(dop853_streams):
-    for fn in dop853_streams:
-        got, want = load_evolve_file(fn), ref_load_evolve_file(fn)
-        assert sorted(got) == sorted(want)
-        for k in want:
-            np.testing.assert_array_equal(got[k], want[k])
-
-
-def test_rk45_device_matches_dop853(models, dop853_streams, tmp_path):
-    _, c = models
-    fn = str(tmp_path / "rk45.npz")
-    assert c.evolve(fn, 0.0, c.T_init, T_EVAL, overwrite=True, method="rk45_device")
-    st = c.evolve_stats
-    assert st["rhs_evaluations"] == 1 + 7 * st["attempted"] and st["accepted"] > 0
-    got, want = load_evolve_file(fn), load_evolve_file(dop853_streams[1])
-    assert sorted(got) == sorted(STREAM)
-    for k in STREAM:
-        assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, k
-    np.testing.assert_allclose(got["T"], want["T"], rtol=1e-4, atol=1e-3)
-    for k in FLUXES + ("P",):
-        assert np.isfinite(got[k]).all(), k
-
-
-def test_rk45_device_matches_reference(models, tmp_path, capsys):
-    """The same step sequence as the JAX package's rk45_device (its step
-    count, printed when verbose), and T at rtol 1e-8."""
-    ref, c = models
-    t_eval = np.logspace(3.0, 4.5, 3)
-    files = str(tmp_path / "ref.npz"), str(tmp_path / "port.npz")
-    ref.verbose = True
-    try:
-        assert ref.evolve(files[0], 0.0, ref.T_init, t_eval, overwrite=True,
-                          method="rk45_device")
-    finally:
-        ref.verbose = False
-    printed = capsys.readouterr().out
-    assert c.evolve(files[1], 0.0, c.T_init, t_eval, overwrite=True, method="rk45_device")
-    assert f"device RK45: {c.evolve_stats['attempted']} steps over 3 segments" in printed
-    got, want = load_evolve_file(files[1]), ref_load_evolve_file(files[0])
-    np.testing.assert_allclose(got["T"], want["T"], rtol=1e-8)
-    _close_fluxes([got[k] for k in FLUXES], [want[k] for k in FLUXES], 1e-8)
-    for k in ("P", "z", "t"):
-        np.testing.assert_allclose(got[k], want[k], rtol=1e-12, atol=0, err_msg=k)
-
-
-def test_rk45_device_rejects_a_non_finite_step(models, tmp_path):
-    """A stage that comes back NaN (heat_capacity outside its tables) makes
-    its step a rejected one, shrunk by 0.2, and the integration goes on."""
-    _, c = models
-    build = c._build_device_fns
-    calls = [0]
-
-    def poisoned(T_freeze=None):
-        rhs, fluxes_fn = build(T_freeze)
-
-        def rhs_nan(T_in):
-            calls[0] += 1
-            out = rhs(T_in)
-            return out * float("nan") if calls[0] == 3 else out  # 2nd stage, first attempt
-        return rhs_nan, fluxes_fn
-
-    fns = str(tmp_path / "clean.npz"), str(tmp_path / "nan.npz")
-    assert c.evolve(fns[0], 0.0, c.T_init, T_EVAL, overwrite=True, method="rk45_device")
-    clean = dict(c.evolve_stats)
-    c._build_device_fns = poisoned
-    try:
-        assert c.evolve(fns[1], 0.0, c.T_init, T_EVAL, overwrite=True, method="rk45_device")
-    finally:
-        del c._build_device_fns
-    assert c.evolve_stats["rejected"] >= clean["rejected"] + 1
-    got, want = load_evolve_file(fns[1]), load_evolve_file(fns[0])
-    assert np.isfinite(got["T"]).all()
-    np.testing.assert_allclose(got["T"], want["T"], rtol=1e-4, atol=1e-3)
 
 
 def test_evolve_errors(models, tmp_path):

@@ -9,6 +9,7 @@ CUDA device is present; on a GPU machine:
 suite's conftest configures JAX, which a GPU machine need not have)."""
 
 import dataclasses
+import json
 from unittest import mock
 
 import numpy as np
@@ -863,3 +864,91 @@ def test_one_rank_mesh_on_the_card_is_bitwise(dev):
                        batched_surface_temperature(c, P_i))):
         for g, w in zip(got, want):
             assert torch.equal(g, w) if torch.is_tensor(w) else g == w
+
+
+# --- the examples and the tools (-k "examples or tools") -------------------
+
+EXAMPLE_NAMES = ("modern_earth_radtran", "tutorial_adiabat_climate", "early_mars",
+                 "climate_evolve")
+
+
+@pytest.mark.parametrize("name", EXAMPLE_NAMES)
+def test_examples_on_the_card_match_the_cpu(dev, name, tmp_path):
+    """Each example at nz=8 on the card against the same example on the CPU:
+    TOA fluxes and f_total at rtol 1e-9, surface temperatures (the solves',
+    early_mars's converged columns' and the snapshots') at rtol 1e-8, the
+    same convergence."""
+    import importlib
+
+    mod = importlib.import_module(f"clima_tpu_torch.examples.{name}")
+    (tmp_path / "card").mkdir()
+    (tmp_path / "cpu").mkdir()
+    card = mod.main(nz=8, root=str(tmp_path / "card"))
+    cpu = mod.main(device="cpu", nz=8, root=str(tmp_path / "cpu"))
+    close = lambda k, rtol, **kw: np.testing.assert_allclose(card[k], cpu[k], rtol=rtol,
+                                                             err_msg=k, **kw)
+    if name == "modern_earth_radtran":
+        for k in ("toa_solar_fdn", "olr"):
+            close(k, 1e-9)
+        close("f_total", 1e-9, atol=1e-6)
+    elif name == "tutorial_adiabat_climate":
+        close("ISR", 1e-9)
+        close("OLR", 1e-9)
+        close("T_surf_solve", 1e-8)
+        assert card["converged"] and cpu["converged"]
+        close("T_surf", 1e-8)
+    elif name == "early_mars":  # unconverged columns hold their last iterate
+        np.testing.assert_array_equal(card["converged"], cpu["converged"])
+        conv = cpu["converged"]
+        np.testing.assert_allclose(card["T_surf"][conv], cpu["T_surf"][conv], rtol=1e-8)
+    else:
+        assert card["converged"] and cpu["converged"]
+        np.testing.assert_allclose(card["snapshots"]["T"][:, 0], cpu["snapshots"]["T"][:, 0],
+                                   rtol=1e-8)
+
+
+def test_tools_roofline_json_fields(dev, tmp_path):
+    from clima_tpu_torch.tools import roofline
+
+    out = tmp_path / "roofline.json"
+    rows = roofline.main(["--columns", "4", "--nz", "42", "--iters", "2", "--out", str(out)])
+    assert json.loads(out.read_text())["rows"] == json.loads(json.dumps(rows))
+    assert len(rows) == 8
+    for r in rows:
+        assert {"kernel", "shape", "time_ms", "bytes", "ops", "achieved_GBs", "bound_ms",
+                "bound_by", "share_of_bound"} <= set(r)
+        assert r["time_ms"] > 0 and 0.0 < r["share_of_bound"] <= 1.0
+
+
+def test_tools_validation_json_fields(dev, tmp_path):
+    from clima_tpu_torch.tools import validation
+
+    res = validation.main(["--nz", "6", "--out", str(tmp_path / "validation.json")])
+    assert res["kernel_parity_ok"] and validation.parity_within(res["kernel_parity"])[0]
+    assert {"solar_surfrad_maxrel", "solar_multi_surfrad_maxrel"} <= set(res["kernel_parity"])
+    rec = res["device_rce"]
+    assert rec["status"] == [0, 0] and res["cpu_f64"]["converged"]
+    assert rec["vs_cpu_f64"]["mask_equal"] and rec["within_limits"]
+    assert validation.rce_within(rec, res["cpu_f64"]["converged"])
+    assert len(rec["ratio_trace"]) >= 1
+
+
+def test_tools_rce_bench_json_fields(dev, tmp_path):
+    from clima_tpu_torch.tools import rce_bench
+
+    res = rce_bench.main(["--sizes", "2", "--nz", "6", "--out", str(tmp_path / "b.json")])
+    run = res["runs"][0]
+    assert run["status"] == [0, 0] and run["finite"]
+    assert run["columns_per_s_without_capture"] >= run["columns_per_s_with_capture"] > 0
+    assert min(run["second"]["launches"].values()) >= 1
+
+
+def test_tools_scaling_json_fields(dev, tmp_path):
+    from clima_tpu_torch.tools import scaling
+
+    (rec,) = scaling.main(["--devices", "1", "--workloads", "toa", "--nz", "6", "--iters", "2",
+                           "--out", str(tmp_path / "s.json")])
+    assert rec["rank_exitcodes"] == [0] and rec["backend"] == "nccl"
+    assert rec["wall_s_median"] > 0 and min(rec["launches"].values()) >= 1
+    with pytest.raises(ValueError, match="more than"):
+        scaling.main(["--devices", str(torch.cuda.device_count() + 1), "--workloads", "toa"])

@@ -47,6 +47,8 @@ from clima_tpu_torch.adiabat.rce_device import batched_rce
 from clima_tpu_torch.parallel import (batched_make_column, batched_surface_temperature,
                                       batched_toa_fluxes, make_column_fns, make_mesh)
 from clima_tpu_torch.tools import distributed_worker as worker
+from test_torch_threads import _one_torch_thread  # noqa: F401 (autouse: one CPU thread)
+
 
 B = 4
 MODEL = dict(nz=6, n_zenith=2, substeps=2, device="cpu")

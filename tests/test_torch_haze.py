@@ -26,12 +26,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from clima_tpu.adiabat import AdiabatClimate as RefAdiabatClimate
 from clima_tpu.adiabat import rce_device as ref_rce_device
 from clima_tpu.data import make_template_dir
 
 from clima_tpu_torch.adiabat import AdiabatClimate, rce, rce_device
+from test_torch_threads import _one_torch_thread  # noqa: F401 (autouse: one CPU thread)
+
 
 NZ, SUBSTEPS = 8, 2
 HAZE_P = np.geomspace(2.0e6, 1.0, 8)  # tests/test_rce_device.py's haze nodes

@@ -51,20 +51,31 @@ MODULES = [
     "clima_tpu_torch.utils.checkpoint",
     "clima_tpu_torch.utils.profiling",
     "clima_tpu_torch.tools.distributed_worker",
+    "clima_tpu_torch.tools.roofline",
+    "clima_tpu_torch.tools.validation",
+    "clima_tpu_torch.tools.rce_bench",
+    "clima_tpu_torch.tools.scaling",
+    "clima_tpu_torch.examples",
+    "clima_tpu_torch.examples.modern_earth_radtran",
+    "clima_tpu_torch.examples.tutorial_adiabat_climate",
+    "clima_tpu_torch.examples.early_mars",
+    "clima_tpu_torch.examples.climate_evolve",
     "chip_smoke",
 ]
 
 
 def test_port_imports_without_jax():
     """Every module of the port imports with JAX made unimportable, and no JAX
-    module and no module of clima_tpu is loaded afterwards."""
+    module, no module of clima_tpu and nothing of the JAX package's
+    examples/, scripts/ or entry point is loaded afterwards."""
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
         f"for m in {MODULES!r}:\n"
         "    importlib.import_module(m)\n"
         "loaded = [m for m in sys.modules if m.startswith(('jax.', 'jaxlib', 'clima_tpu.'))\n"
-        "          or m == 'clima_tpu']\n"
+        "          or m.split('.')[0] in ('clima_tpu', 'examples', 'scripts', '__graft_entry__',\n"
+        "                                 'bench', 'bench_pipeline')]\n"
         "assert sys.modules['jax'] is None and not loaded, loaded\n"
         "print('ok')\n"
     )

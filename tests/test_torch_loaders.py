@@ -28,6 +28,8 @@ from clima_tpu_torch.data import make_template, make_template_dir as port_make_t
 from clima_tpu_torch.physics import eqns
 from clima_tpu_torch.ops import interp, rebin
 from clima_tpu_torch.radtran import data
+from test_torch_threads import _one_torch_thread  # noqa: F401 (autouse: one CPU thread)
+
 
 RTOL = 1e-14
 

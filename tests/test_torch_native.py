@@ -7,12 +7,14 @@ import types
 
 import numpy as np
 import pytest
+import torch
 
 from clima_tpu.ops.rebin import rebin_with_errors as ref_rebin_with_errors
 
 import clima_tpu_torch
 from clima_tpu_torch.ops import rebin as rb
 from clima_tpu_torch.utils import shared_library
+from test_torch_threads import _one_torch_thread  # noqa: F401 (autouse: one CPU thread)
 
 
 def random_edges(rng, n, lo, hi):

@@ -16,6 +16,8 @@ from clima_tpu.physics import saturation as ref_sat
 from clima_tpu_torch.config import load_species
 from clima_tpu_torch.config.species import heat_capacity
 from clima_tpu_torch.physics import saturation
+from test_torch_threads import _one_torch_thread  # noqa: F401 (autouse: one CPU thread)
+
 
 RTOL = 1e-12
 

@@ -20,6 +20,8 @@ from clima_tpu.parallel import (batched_surface_temperature as ref_batched_surfa
 from clima_tpu_torch.adiabat import AdiabatClimate
 from clima_tpu_torch.parallel import (batched_surface_temperature, batched_toa_fluxes,
                                       make_column_fns)
+from test_torch_threads import _one_torch_thread  # noqa: F401 (autouse: one CPU thread)
+
 
 B = 3
 

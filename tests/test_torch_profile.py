@@ -18,6 +18,8 @@ from clima_tpu_torch.adiabat import profile
 from clima_tpu_torch.adiabat.altitude import compute_altitude_core
 from clima_tpu_torch.adiabat.profile_dry import make_profile_dry_core
 from clima_tpu_torch.config import load_species
+from test_torch_threads import _one_torch_thread  # noqa: F401 (autouse: one CPU thread)
+
 
 RTOL = 1e-10
 NZ, P_TOP, SUBSTEPS = 12, 10.0, 4

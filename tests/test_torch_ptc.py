@@ -9,11 +9,14 @@ with the same reason after the same steps and rejections.
 
 import numpy as np
 import pytest
+import torch
 
 from clima_tpu.solvers.ptc import PTCSolver as RefPTCSolver
 
 from clima_tpu_torch import ClimaException
 from clima_tpu_torch.solvers import PTCSolver
+from test_torch_threads import _one_torch_thread  # noqa: F401 (autouse: one CPU thread)
+
 
 RTOL = 1e-12
 

@@ -35,6 +35,8 @@ from clima_tpu_torch.ops import twostream as ts
 from clima_tpu_torch.ops import twostream_cuda as tc
 from clima_tpu_torch.radtran import RTChannelView
 from clima_tpu_torch.radtran import opacity
+from test_torch_threads import _one_torch_thread  # noqa: F401 (autouse: one CPU thread)
+
 
 T = lambda *xs: [torch.tensor(x) for x in xs]
 J = lambda *xs: [jnp.asarray(x) for x in xs]

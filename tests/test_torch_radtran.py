@@ -20,6 +20,8 @@ from clima_tpu.radtran.opacity import compute_opacity as ref_compute_opacity
 from clima_tpu_torch import ClimaException
 from clima_tpu_torch.data import make_template
 from clima_tpu_torch.radtran import Radtran, compute_opacity, optical_data_from_numpy
+from test_torch_threads import _one_torch_thread  # noqa: F401 (autouse: one CPU thread)
+
 
 NZ = 12
 

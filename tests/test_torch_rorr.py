@@ -20,6 +20,7 @@ from clima_tpu.ops.pallas_rorr import k_rorr_mix_pallas, mix_pair_rank_ref as re
 from clima_tpu_torch.ops import rorr, rorr_cuda
 from clima_tpu_torch.radtran import opacity
 from clima_tpu_torch.radtran.opacity import _rorr_mix
+from test_torch_threads import _one_torch_thread  # noqa: F401 (autouse: one CPU thread)
 
 
 @pytest.fixture()

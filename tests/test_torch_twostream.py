@@ -21,6 +21,8 @@ from clima_tpu.ops import pallas_twostream as pts
 from clima_tpu.ops import tridiag as ref_tridiag
 
 from clima_tpu_torch.ops import tridiag, twostream as ts, twostream_cuda as tc
+from test_torch_threads import _one_torch_thread  # noqa: F401 (autouse: one CPU thread)
+
 
 # XLA twins share the math; values below ATOL_TWIN are rounding noise of
 # O(1) fluxes (cancellation deep in the column)

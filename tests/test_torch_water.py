@@ -10,6 +10,8 @@ import torch
 from clima_tpu.physics import water as ref_water
 
 from clima_tpu_torch.physics import water
+from test_torch_threads import _one_torch_thread  # noqa: F401 (autouse: one CPU thread)
+
 
 FUNCTIONS = ["latent_heat_H2O", "latent_heat_H2O_vap", "latent_heat_H2O_sub",
              "sat_pressure_H2O", "sat_pressure_H2O_vap", "sat_pressure_H2O_sub"]
