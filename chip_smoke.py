@@ -118,8 +118,9 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    path's largest shape;
 9. the Climate path: ``Climate`` with tests/test_climate.py's settings and
    atmosphere column at nz=50, 4 zenith angles, from T_init over
-   logspace(4, 6, 10) s (examples/climate_evolve.py): ``evolve`` with
-   DOP853 (host scipy, each RHS one radiative transfer through the facade)
+   logspace(4, 5.7, 10) s (examples/climate_evolve.py's span, cut at 5e5
+   s): ``evolve`` with DOP853 (host scipy, each RHS one radiative transfer
+   through the facade)
    and with rk45_device (the state on the card), both at rtol 1e-7 and held
    to each other (T rtol 1e-4, atol 1e-3), then DOP853 at the model's
    default tolerances, its gap printed; every field of every stream finite,
@@ -166,9 +167,17 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
     against the CPU's host RCE in a child process (every lane status 0; the
     CPU's mask, T_surf within 5e-3 K and T within 0.1 K, the tool's
     RCE_LIMITS), ``tools.rce_bench`` over 4 lanes at nz=8 (every lane status
-    0) and ``tools.scaling`` over one NCCL rank (toa, 3 timed calls; the
-    rank exits 0 and launches the three kernels). Each call's seconds are
-    printed. ``early_mars`` (started with phase 10) and
+    0), ``tools.scaling`` over one NCCL rank (toa, 3 timed calls; the
+    rank exits 0 and launches the three kernels), and, once every
+    example's process has ended (alone on the card), the stage tools:
+    ``tools.profile_stages --columns 16`` (the radtran chain by stage, each
+    stage's times finite, #1, #2 and RORR launched),
+    ``tools.opacity_substages --columns 16`` (compute_opacity by stage, the
+    stages composed bitwise equal to it, the RORR kernel within 1e-9 of the
+    sort path on the chain's own species tensor) and ``tools.rorr_crossover
+    --nbins 8 16 20 --nw 16`` (the kernel within 1e-9 of the sort path, the
+    sort path's time and memory at nbin 20), each printing its lines. Each
+    call's seconds are printed. ``early_mars`` (started with phase 10) and
     ``tutorial_adiabat_climate`` run each in a process of its own on the
     card, and the validation tool's CPU reference in a child process, each
     running beside the rest (the paths are host-bound: the card idles
@@ -226,7 +235,8 @@ from clima_tpu_torch.radtran import Radtran, opacity, radiate  # noqa: E402
 from clima_tpu_torch.config.atmosphere_file import AtmosphereFile  # noqa: E402
 from clima_tpu_torch.examples import (climate_evolve, early_mars,  # noqa: E402
                                       modern_earth_radtran, tutorial_adiabat_climate)
-from clima_tpu_torch.tools import (distributed_worker, rce_bench, roofline,  # noqa: E402
+from clima_tpu_torch.tools import (distributed_worker, opacity_substages,  # noqa: E402
+                                   profile_stages, rce_bench, roofline, rorr_crossover,
                                    scaling, validation)
 
 RTOL, ATOL = 1e-9, 1e-12
@@ -1752,7 +1762,10 @@ def _device_rce_on_card(device, smi, conn, st):
     return launches
 
 CLIMATE_NZ = 50  # ModernEarth's 50 layers; nz_r = 100 (no ghost layers)
-CLIMATE_T_EVAL = np.logspace(4.0, 6.0, 10)  # examples/climate_evolve.py:92
+# examples/climate_evolve.py:92's ten log-spaced times, their span cut from
+# 1e6 s to 10^5.7 = 5.01e5 s (past the convective onset near 4e5 s) to keep
+# the script within its time with phase 11's stage tools
+CLIMATE_T_EVAL = np.logspace(4.0, 5.7, 10)
 # the integrators' (rtol, atol) for the checked pair of runs. At the
 # model's default (1e-4, 1e-6), and for DOP853 still at 1e-6, the two take
 # different paths through the convective onset near 4e5 s, where the RHS is
@@ -2181,7 +2194,7 @@ CHILD_EXAMPLES = EARLY_EXAMPLES + ("tutorial_adiabat_climate",)
 def phase_examples_and_tools(device, smi, workdir, children):
     """``children``: the examples of EARLY_EXAMPLES, started before phase 10
     by :func:`start_examples` under ``workdir``; the phase adds its own."""
-    print("== phase 11: the four examples at their own sizes and the four tools, each once")
+    print("== phase 11: the four examples at their own sizes and the seven tools, each once")
     t_phase = time.perf_counter()
     launches = dict.fromkeys(KERNELS, 0)
 
@@ -2247,6 +2260,10 @@ def phase_examples_and_tools(device, smi, workdir, children):
               f"{seconds:.1f} s, kernel launches { {k: v for k, v in n.items() if v} }")
         example_done(name, out, n, printed)
         print(checked, end="")
+    # the stage tools once every child has ended, alone on the card
+    for proc, _ in children.values():
+        proc.join(60)
+    phase_stage_tools(counted)
     print(f"  kernel launches on phase 11's paths: {launches}")
     print(f"  phase 11: {time.perf_counter() - t_phase:.1f} s ({smi})")
     return launches
@@ -2313,6 +2330,66 @@ def phase_tools(device, counted, launches, reference):
           f"kernel launches {rec['launches']}")
     if rec["rank_exitcodes"] != [0] or min(rec["launches"].values()) < 1:
         raise AssertionError(f"scaling: the rank failed or launched no kernel: {rec}")
+
+
+def _finite_times(rec, keys=("host_ms", "event_ms")):
+    return all(np.isfinite(rec[k]) for k in keys if rec.get(k) is not None)
+
+
+def _profiled(r):
+    """A stage's profiler fields, or "not measured" where its passes lost
+    device records."""
+    if r.get("busy_ms") is None:
+        passes = r.get("profiler_passes")
+        return "profiler not measured" + (f" ({passes} passes lost records)" if passes else "")
+    idle = f", idle {100 * r['idle_share']:.1f} %" if r.get("idle_share") is not None else ""
+    return f"busy {r['busy_ms']:9.4f} ms, {r['launches']} launches{idle}"
+
+
+def phase_stage_tools(counted):
+    """Phase 11's stage tools, each once and small, alone on the card: the
+    radtran chain by stage, compute_opacity by stage (its stages composed
+    bitwise equal to it) and the RORR kernel against the sort path at nbin
+    8, 16 and 20."""
+    res, n, _ = counted("tools.profile_stages (--columns 16)", profile_stages.main,
+                        ["--columns", "16"])
+    for r in res["stages"] + [res["sum"]]:
+        print(f"    {r['stage']:<17} host {r['per_call_ms']:9.4f} ms, events "
+              f"{r['event_ms']:9.4f} ms, {_profiled(r)}")
+        if not _finite_times(r, ("per_call_ms", "event_ms", "busy_ms")):
+            raise AssertionError(f"profile_stages: stage {r['stage']} is not finite: {r}")
+    if min(n[k] for k in RADTRAN_KERNELS) < 1:
+        raise AssertionError(f"profile_stages did not launch each of #1, #2 and RORR: {n}")
+
+    res, n, _ = counted("tools.opacity_substages (--columns 16)", opacity_substages.main,
+                        ["--columns", "16"])
+    print(f"    composed stages bitwise equal to compute_opacity: {res['composed_bitwise']}")
+    for r in res["stages"]:
+        print(f"    {r['stage']:<12} host {r['host_ms']:9.4f} ms, events {r['event_ms']:9.4f} ms, "
+              f"{_profiled(r)}"
+              + (f", {r['max_rel_diff']:.3e} from the chain's" if "max_rel_diff" in r else ""))
+        if not _finite_times(r) or (r["stage"] != "rest" and not r["host_ms"] > 0):
+            raise AssertionError(f"opacity_substages: stage {r['stage']} is not finite: {r}")
+    sort = next(r for r in res["stages"] if r["stage"] == "rorr_sort")
+    if not res["composed_bitwise"] or sort["max_rel_diff"] > 1e-9:
+        raise AssertionError("opacity_substages: the composed stages differ from compute_opacity "
+                             f"or the RORR kernel from the sort path ({sort['max_rel_diff']})")
+    if n["k_rorr_mix"] < 1:
+        raise AssertionError(f"opacity_substages did not launch the RORR kernel: {n}")
+
+    res, n, _ = counted("tools.rorr_crossover (--nbins 8 16 20 --nw 16)", rorr_crossover.main,
+                        ["--nbins", "8", "16", "20", "--nw", "16"])
+    for r in res["rows"]:
+        print(f"    nbin {r['nbin']:>2}: sort {r['sort_ms']:9.4f} ms ({r['sort_peak_MiB']:.1f} MiB)"
+              + (f", kernel {r['kernel_ms']:.4f} ms, speedup {r['speedup']:.1f}, "
+                 f"{r['max_rel_diff']:.3e} apart" if "kernel_ms" in r else
+                 f", {r['kernel_error']}"))
+        if not _finite_times(r, ("sort_ms", "kernel_ms")) or r.get("max_rel_diff", 0.0) > 1e-9:
+            raise AssertionError(f"rorr_crossover: nbin {r['nbin']} is not finite or the kernel "
+                                 f"and the sort path differ: {r}")
+    print(f"    crossover_nbin {res['crossover_nbin']}")
+    if n["k_rorr_mix"] < 1:
+        raise AssertionError(f"rorr_crossover did not launch the RORR kernel: {n}")
 
 
 def main():

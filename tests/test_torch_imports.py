@@ -55,6 +55,9 @@ MODULES = [
     "clima_tpu_torch.tools.validation",
     "clima_tpu_torch.tools.rce_bench",
     "clima_tpu_torch.tools.scaling",
+    "clima_tpu_torch.tools.profile_stages",
+    "clima_tpu_torch.tools.opacity_substages",
+    "clima_tpu_torch.tools.rorr_crossover",
     "clima_tpu_torch.examples",
     "clima_tpu_torch.examples.modern_earth_radtran",
     "clima_tpu_torch.examples.tutorial_adiabat_climate",

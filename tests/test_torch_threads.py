@@ -7,9 +7,15 @@ spin against each other (the port's files ran 3.5 times slower).
     from test_torch_threads import _one_torch_thread  # noqa: F401 (autouse)
 """
 
+import contextlib
+
 import pytest
-import threadpoolctl
 import torch
+
+try:
+    import threadpoolctl
+except ImportError:  # the GPU machine has none; there torch's pool alone is limited
+    threadpoolctl = None
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -18,7 +24,8 @@ def _one_torch_thread():
     after it."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    with threadpoolctl.threadpool_limits(limits=1):  # numpy's BLAS too
+    blas = threadpoolctl.threadpool_limits(limits=1) if threadpoolctl else contextlib.nullcontext()
+    with blas:  # numpy's BLAS too
         yield
     torch.set_num_threads(n)
 
