@@ -20,6 +20,7 @@ import torch
 from .. import constants as const
 from ..ops.cuda_graph import graphed
 from ..ops.interp import searchsorted_right
+from ..utils.profiling import span
 
 __all__ = ["compute_altitude_core"]
 
@@ -64,6 +65,7 @@ def _rk4_interval(logP_grid, T_grid, mu_grid, GM, planet_radius, z_offset, K, z,
     return (z,)
 
 
+@span("adiabat.altitude")
 def compute_altitude_core(P, T, mubar, P_surf, T_surf, mubar_surf, P_top,
                           planet_mass, planet_radius, reference_pressure=-1.0,
                           substeps=4):
@@ -74,58 +76,66 @@ def compute_altitude_core(P, T, mubar, P_surf, T_surf, mubar_surf, P_top,
     Returns dict with z (B, nz), dz (B, nz), gravity (B, nz), gravity_surf
     (B,), z_e (B, 2nz+1).
     """
-    B, nz = P.shape
-    ne = 2 * nz + 1
+    with span("adiabat.altitude.setup"):
+        B, nz = P.shape
+        ne = 2 * nz + 1
 
-    # edge grid (altitude.f90:45-50)
-    P_e = torch.empty((B, ne), dtype=P.dtype, device=P.device)
-    P_e[:, 0] = P_surf
-    P_e[:, 1::2] = P
-    P_e[:, 2:-1:2] = torch.sqrt(P[:, :-1] * P[:, 1:])
-    P_e[:, -1] = P_top
+        # edge grid (altitude.f90:45-50)
+        P_e = torch.empty((B, ne), dtype=P.dtype, device=P.device)
+        P_e[:, 0] = P_surf
+        P_e[:, 1::2] = P
+        P_e[:, 2:-1:2] = torch.sqrt(P[:, :-1] * P[:, 1:])
+        P_e[:, -1] = P_top
 
-    # interpolators on ascending log10P (altitude.f90:57-87)
-    logP_grid = torch.log10(torch.cat([torch.flip(P, dims=[1]), P_surf[:, None]], dim=1))
-    T_grid = torch.cat([torch.flip(T, dims=[1]), T_surf[:, None]], dim=1)
-    mu_grid = torch.cat([torch.flip(mubar, dims=[1]), mubar_surf[:, None]], dim=1)
-    GM = const.G_grav * (planet_mass / 1.0e3)
-    zero = torch.zeros_like(P_surf)
+        # interpolators on ascending log10P (altitude.f90:57-87)
+        logP_grid = torch.log10(torch.cat([torch.flip(P, dims=[1]), P_surf[:, None]], dim=1))
+        T_grid = torch.cat([torch.flip(T, dims=[1]), T_surf[:, None]], dim=1)
+        mu_grid = torch.cat([torch.flip(mubar, dims=[1]), mubar_surf[:, None]], dim=1)
+        GM = const.G_grav * (planet_mass / 1.0e3)
+        zero = torch.zeros_like(P_surf)
 
     def surface_anchored(z_offset):
         # integrate edges 1..ne-2 from the surface; extrapolate the last edge
         # (altitude.f90:180-193: the T interpolator does not cover P_top)
         step = functools.partial(_rk4_interval, logP_grid, T_grid, mu_grid, GM, planet_radius,
                                  z_offset, substeps)
-        if P.device.type == "cuda":
-            replay, (z,) = graphed(step, zero, P_e[:, 0], P_e[:, 1])
-        else:
-            replay, (z,) = step, step(zero, P_e[:, 0], P_e[:, 1])
+        with span("adiabat.altitude.capture"):
+            if P.device.type == "cuda":
+                replay, (z,) = graphed(step, zero, P_e[:, 0], P_e[:, 1])
+            else:
+                replay, (z,) = step, step(zero, P_e[:, 0], P_e[:, 1])
         zs = [zero, z]
         for i in range(1, ne - 2):
-            zs.append(replay(zs[-1], P_e[:, i], P_e[:, i + 1])[0].clone())
-        zs.append(zs[ne - 2] + (zs[ne - 2] - zs[ne - 3]))
-        return torch.stack(zs, dim=1)
+            with span("adiabat.altitude.replay"):
+                zs.append(replay(zs[-1], P_e[:, i], P_e[:, i + 1])[0].clone())
+        with span("adiabat.altitude.assemble"):
+            zs.append(zs[ne - 2] + (zs[ne - 2] - zs[ne - 3]))
+            return torch.stack(zs, dim=1)
 
     if reference_pressure is not None and reference_pressure > 0:
         # Anchor the planet radius at reference_pressure (altitude.f90:97-169)
         # by two Picard iterations, as the JAX package does.
-        Pref = torch.full_like(P_surf, reference_pressure)
-        zref = zero
+        with span("adiabat.altitude.setup"):
+            Pref = torch.full_like(P_surf, reference_pressure)
+            zref = zero
         for _ in range(2):
             z_e = surface_anchored(zref)
-            logPe_asc = torch.flip(torch.log10(P_e[:, : ne - 1]), dims=[1])
-            zref = _interp1(logPe_asc, torch.flip(z_e[:, : ne - 1], dims=[1]), torch.log10(Pref))
+            with span("adiabat.altitude.assemble"):
+                logPe_asc = torch.flip(torch.log10(P_e[:, : ne - 1]), dims=[1])
+                zref = _interp1(logPe_asc, torch.flip(z_e[:, : ne - 1], dims=[1]),
+                                torch.log10(Pref))
         z_ref_for_radius = zref
     else:
         z_e = surface_anchored(zero)
         z_ref_for_radius = zero
 
-    z = z_e[:, 1::2]
-    dz = z_e[:, 2::2] - z_e[:, 0:-1:2]
+    with span("adiabat.altitude.assemble"):
+        z = z_e[:, 1::2]
+        dz = z_e[:, 2::2] - z_e[:, 0:-1:2]
 
-    def grav_at(zv):
-        return GM / ((planet_radius + zv - z_ref_for_radius[..., None]) / 1.0e2) ** 2 * 1.0e2
+        def grav_at(zv):
+            return GM / ((planet_radius + zv - z_ref_for_radius[..., None]) / 1.0e2) ** 2 * 1.0e2
 
-    gravity = grav_at(z)
-    gravity_surf = grav_at(zero[:, None])[:, 0]
-    return dict(z=z, dz=dz, gravity=gravity, gravity_surf=gravity_surf, z_e=z_e)
+        gravity = grav_at(z)
+        gravity_surf = grav_at(zero[:, None])[:, 0]
+        return dict(z=z, dz=dz, gravity=gravity, gravity_surf=gravity_surf, z_e=z_e)

@@ -34,6 +34,7 @@ from .. import constants as const
 from ..config.species import GasThermo, heat_capacity
 from ..ops.cuda_graph import graphed
 from ..physics import saturation
+from ..utils.profiling import span
 
 __all__ = ["AdiabatParams", "make_profile_core", "mixing_ratios", "update_mask",
            "lapse_rate_moist", "kink_temps", "surface_classification"]
@@ -368,6 +369,7 @@ def _linspace(start, stop, num):
     return torch.cat([out, stop[:, None]], dim=-1)
 
 
+@span("adiabat.profile")
 def make_profile_core(par: AdiabatParams, RH, T_surf, P_i_surf, T_trop):
     """Build the adiabat profiles of a batch of columns on the 2*nz+1 edge grid.
 
@@ -376,56 +378,61 @@ def make_profile_core(par: AdiabatParams, RH, T_surf, P_i_surf, T_trop):
     decreasing), T_e, z_e, f_i_e (B, 2nz+1, ng), P_trop (B,) (negative where
     no tropopause), N_surface (B, ng), P_surf (B,), mask_surf, r_dry.
     """
-    dtype, device = T_surf.dtype, T_surf.device
-    B = T_surf.shape[0]
-    ne = 2 * par.nz + 1
-    T_trop = torch.as_tensor(T_trop, dtype=dtype, device=device).expand(B)
+    with span("adiabat.profile.setup"):
+        dtype, device = T_surf.dtype, T_surf.device
+        B = T_surf.shape[0]
+        ne = 2 * par.nz + 1
+        T_trop = torch.as_tensor(T_trop, dtype=dtype, device=device).expand(B)
 
-    P_i_atm, N_surface, mask0, r_dry = surface_classification(par, RH, T_surf, P_i_surf)
-    P_surf = torch.sum(P_i_atm, dim=-1)
+        P_i_atm, N_surface, mask0, r_dry = surface_classification(par, RH, T_surf, P_i_surf)
+        P_surf = torch.sum(P_i_atm, dim=-1)
 
-    # log-spaced pressure grid, endpoints pinned (general.f90:256-259)
-    P_top = torch.full_like(P_surf, par.P_top)
-    P_e = 10.0 ** _linspace(torch.log10(P_surf), torch.log10(P_top), ne)
-    P_e = torch.cat([P_surf[:, None], P_e[:, 1:-1], P_top[:, None]], dim=-1)
+        # log-spaced pressure grid, endpoints pinned (general.f90:256-259)
+        P_top = torch.full_like(P_surf, par.P_top)
+        P_e = 10.0 ** _linspace(torch.log10(P_surf), torch.log10(P_top), ne)
+        P_e = torch.cat([P_surf[:, None], P_e[:, 1:-1], P_top[:, None]], dim=-1)
 
-    f_i_surf, _ = mixing_ratios(par, RH, mask0, r_dry, P_surf, T_surf)
+        f_i_surf, _ = mixing_ratios(par, RH, mask0, r_dry, P_surf, T_surf)
 
-    kinks, kvalid = kink_temps(par.sat)
-    K = par.substeps
-    # log-P substep bounds of every interval, (B, ne-1, K)
-    lP = torch.log(P_e)
-    la_i, dl_i = lP[:, :-1, None], (lP[:, 1:] - lP[:, :-1])[:, :, None]
-    k = torch.arange(K, dtype=dtype, device=device)
-    la_all = la_i + dl_i * k / K
-    lb_all = la_i + dl_i * (k + 1) / K
+        kinks, kvalid = kink_temps(par.sat)
+        K = par.substeps
+        # log-P substep bounds of every interval, (B, ne-1, K)
+        lP = torch.log(P_e)
+        la_i, dl_i = lP[:, :-1, None], (lP[:, 1:] - lP[:, :-1])[:, :, None]
+        k = torch.arange(K, dtype=dtype, device=device)
+        la_all = la_i + dl_i * k / K
+        lb_all = la_i + dl_i * (k + 1) / K
 
-    step = functools.partial(_interval, par, RH, r_dry, kinks, kvalid, T_trop, K)
-    state = (T_surf, torch.zeros_like(T_surf), mask0, torch.zeros_like(mask0[:, 0]),
-             torch.full_like(T_surf, -1.0), torch.zeros_like(T_surf), _mubar(par, f_i_surf))
+        step = functools.partial(_interval, par, RH, r_dry, kinks, kvalid, T_trop, K)
+        state = (T_surf, torch.zeros_like(T_surf), mask0, torch.zeros_like(mask0[:, 0]),
+                 torch.full_like(T_surf, -1.0), torch.zeros_like(T_surf), _mubar(par, f_i_surf))
     args = lambda i: (la_all[:, i], lb_all[:, i], P_e[:, i + 1])
-    if device.type == "cuda":
-        # capture the first interval and replay it for the others; a replay
-        # overwrites the previous one's outputs, so the levels keep copies
-        replay, out = graphed(step, *args(0), *state)
-        keep = torch.clone
-    else:
-        replay, out, keep = step, step(*args(0), *state), (lambda t: t)
+    # the first interval: on a card captured (its eager warm-up the span
+    # ops.cuda_graph.warmup) and replayed for the others; a replay overwrites
+    # the previous one's outputs, so the levels keep copies
+    with span("adiabat.profile.capture"):
+        if device.type == "cuda":
+            replay, out = graphed(step, *args(0), *state)
+            keep = torch.clone
+        else:
+            replay, out, keep = step, step(*args(0), *state), (lambda t: t)
     T_lev, z_lev, f_lev = [out[0]], [out[1]], [out[7]]
     for i in range(1, ne - 1):
-        out = replay(*args(i), *out[:7])
-        T_lev.append(keep(out[0]))
-        z_lev.append(keep(out[1]))
-        f_lev.append(keep(out[7]))
-    tropped_final, P_trop = out[3], out[4]
-    return dict(
-        P_e=P_e,
-        T_e=torch.stack([T_surf, *T_lev], dim=-1),
-        z_e=torch.stack([torch.zeros_like(T_surf), *z_lev], dim=-1),
-        f_i_e=torch.stack([f_i_surf, *f_lev], dim=1),
-        P_trop=torch.where(tropped_final, P_trop, -1.0),
-        N_surface=N_surface,
-        P_surf=P_surf,
-        mask_surf=mask0,
-        r_dry=r_dry,
-    )
+        with span("adiabat.profile.replay"):
+            out = replay(*args(i), *out[:7])
+            T_lev.append(keep(out[0]))
+            z_lev.append(keep(out[1]))
+            f_lev.append(keep(out[7]))
+    with span("adiabat.profile.assemble"):
+        tropped_final, P_trop = out[3], out[4]
+        return dict(
+            P_e=P_e,
+            T_e=torch.stack([T_surf, *T_lev], dim=-1),
+            z_e=torch.stack([torch.zeros_like(T_surf), *z_lev], dim=-1),
+            f_i_e=torch.stack([f_i_surf, *f_lev], dim=1),
+            P_trop=torch.where(tropped_final, P_trop, -1.0),
+            N_surface=N_surface,
+            P_surf=P_surf,
+            mask_surf=mask0,
+            r_dry=r_dry,
+        )

@@ -21,12 +21,18 @@ import time
 
 import torch
 
-__all__ = ["graphed", "CAPTURE_SECONDS", "CAPTURES"]
+from ..utils.profiling import span
+
+__all__ = ["graphed", "CAPTURE_SECONDS", "CAPTURES", "WARMUP_SECONDS", "REPLAYS"]
 
 # function name -> seconds spent capturing graphs of it (warm-up run included)
 CAPTURE_SECONDS = {}
 # function name -> graphs captured of it
 CAPTURES = {}
+# function name -> seconds of the eager warm-up runs before its captures
+WARMUP_SECONDS = {}
+# function name -> replays of its graphs
+REPLAYS = {}
 
 
 def graphed(fn, *inputs):
@@ -36,26 +42,31 @@ def graphed(fn, *inputs):
     warm-up run that precedes capture); ``replay(*args)`` copies ``args``
     into the captured input buffers, replays the graph and returns the
     captured output buffers, which the next replay overwrites. Tensors that
-    ``fn`` closes over must stay alive as long as ``replay``.
+    ``fn`` closes over must stay alive as long as ``replay``. The warm-up
+    run is the span ``ops.cuda_graph.warmup``, on the side stream it runs on.
     """
     t0 = time.perf_counter()
+    name = getattr(fn, "func", fn).__name__  # a functools.partial names its function
     static = [x.clone() for x in inputs]
     side = torch.cuda.Stream(device=static[0].device)
     side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
+    with torch.cuda.stream(side), span("ops.cuda_graph.warmup"):
+        t1 = time.perf_counter()
         first = tuple(t.clone() for t in fn(*static))
+        t2 = time.perf_counter()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         outputs = fn(*static)
-    name = getattr(fn, "func", fn).__name__  # a functools.partial names its function
     CAPTURE_SECONDS[name] = CAPTURE_SECONDS.get(name, 0.0) + time.perf_counter() - t0
+    WARMUP_SECONDS[name] = WARMUP_SECONDS.get(name, 0.0) + t2 - t1
     CAPTURES[name] = CAPTURES.get(name, 0) + 1
 
     def replay(*args):
         for buf, a in zip(static, args):
             buf.copy_(a)
         graph.replay()
+        REPLAYS[name] = REPLAYS.get(name, 0) + 1
         return outputs
 
     return replay, first

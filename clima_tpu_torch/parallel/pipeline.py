@@ -34,6 +34,7 @@ from ..adiabat.altitude import compute_altitude_core
 from ..adiabat.profile import AdiabatParams, make_profile_core
 from ..radtran.opacity import compute_opacity
 from ..radtran.radiate import integrate_fluxes, radiate_ir, radiate_solar
+from ..utils.profiling import request, span
 
 __all__ = [
     "make_column_fns",
@@ -184,51 +185,58 @@ def make_column_fns(c):
     def _build_profile(T_surf, P_i_surf, T_trop):
         """Profile + altitude + reservoir bookkeeping (no RT)."""
         prof = make_profile_core(par, RH, T_surf, P_i_surf, T_trop)
-        P_c = prof["P_e"][:, 1::2]
-        T_c = prof["T_e"][:, 1::2]
-        f_c = prof["f_i_e"][:, 1::2]
-        mubar = torch.sum(f_c * gas_masses, dim=-1)
-        mubar_surf = torch.sum(prof["f_i_e"][:, 0] * gas_masses, dim=-1)
+        with span("adiabat.column.layers"):
+            P_c = prof["P_e"][:, 1::2]
+            T_c = prof["T_e"][:, 1::2]
+            f_c = prof["f_i_e"][:, 1::2]
+            mubar = torch.sum(f_c * gas_masses, dim=-1)
+            mubar_surf = torch.sum(prof["f_i_e"][:, 0] * gas_masses, dim=-1)
         alt = compute_altitude_core(
             P_c, T_c, mubar, prof["P_surf"], T_surf, mubar_surf, par.P_top,
             par.planet_mass, par.planet_radius, -1.0,
         )
-        density = P_c / (const.k_boltz * T_c)
-        dens = f_c * density[..., None]
-        # N_atmos mol/cm^2 (clima_adiabat.f90:449-453 semantics)
-        N_atmos = torch.sum(dens * alt["dz"][..., None], dim=1) / const.N_avo
+        with span("adiabat.column.amounts"):
+            density = P_c / (const.k_boltz * T_c)
+            dens = f_c * density[..., None]
+            # N_atmos mol/cm^2 (clima_adiabat.f90:449-453 semantics)
+            N_atmos = torch.sum(dens * alt["dz"][..., None], dim=1) / const.N_avo
         return dict(prof=prof, P_c=P_c, T_c=T_c, dens=dens, dz=alt["dz"],
                     P_surf=prof["P_surf"], N_atmos=N_atmos, N_surface=prof["N_surface"])
 
     def profile_only(T_surf, P_i_surf, T_trop):
-        b = _build_profile(T_surf, P_i_surf, T_trop)
-        return dict(P_surf=b["P_surf"], N_atmos=b["N_atmos"], N_surface=b["N_surface"],
-                    f_i_surf=b["prof"]["f_i_e"][:, 0])
+        with request("adiabat.profile_only"):
+            b = _build_profile(T_surf, P_i_surf, T_trop)
+            return dict(P_surf=b["P_surf"], N_atmos=b["N_atmos"], N_surface=b["N_surface"],
+                        f_i_surf=b["prof"]["f_i_e"][:, 0])
 
     def column_model(T_surf, P_i_surf, T_trop):
-        b = _build_profile(T_surf, P_i_surf, T_trop)
-        T_c, P_c, dens = b["T_c"], b["P_c"], b["dens"]
+        with request("adiabat.column_model"):
+            b = _build_profile(T_surf, P_i_surf, T_trop)
+            T_c, P_c, dens = b["T_c"], b["P_c"], b["dens"]
 
-        # doubled RT grid + 2 ghost layers (clima_adiabat.f90:729-773)
-        def ghost(a):
-            return torch.cat([torch.repeat_interleave(a, 2, dim=1), a[:, -1:], a[:, -1:]],
-                             dim=1)
+            # doubled RT grid + 2 ghost layers (clima_adiabat.f90:729-773)
+            def ghost(a):
+                return torch.cat([torch.repeat_interleave(a, 2, dim=1), a[:, -1:], a[:, -1:]],
+                                 dim=1)
 
-        T_r, P_r, dens_r, dz_r = ghost(T_c), ghost(P_c), ghost(dens), ghost(0.5 * b["dz"])
-        opr = compute_opacity(op, P_r / 1.0e6, T_r, dens_r, dz_r)
-        ir = radiate_ir(ir_slice, freq_master, wbin, opr, emissivity, has_hard, ir_tau_min,
-                        T_surf, T_r)
-        fup_ir, fdn_ir = integrate_fluxes(
-            ir["fup_a"], ir["fdn_a"], freq_master[ir_slice[0]: ir_slice[1] + 2])
-        sol = radiate_solar(sol_slice, freq_master, wavl_master, wbin, opr, albedo, diurnal,
-                            photons, zenith_u, zenith_w, compute_amean=False)
-        fup_sol, fdn_sol = integrate_fluxes(
-            sol["fup_a"], sol["fdn_a"], freq_master[sol_slice[0]: sol_slice[1] + 2])
-        ISR = fdn_sol[:, -1] - fup_sol[:, -1]
-        OLR = -(fdn_ir[:, -1] - fup_ir[:, -1])
-        return dict(ISR=ISR, OLR=OLR, fup_sol_toa=fup_sol[:, -1], fdn_sol_toa=fdn_sol[:, -1],
-                    P_surf=b["P_surf"], N_atmos=b["N_atmos"], N_surface=b["N_surface"],
-                    f_i_surf=b["prof"]["f_i_e"][:, 0])
+            with span("adiabat.column.grid"):
+                T_r, P_r, dens_r, dz_r = ghost(T_c), ghost(P_c), ghost(dens), ghost(0.5 * b["dz"])
+                P_r_bar = P_r / 1.0e6
+            opr = compute_opacity(op, P_r_bar, T_r, dens_r, dz_r)
+            ir = radiate_ir(ir_slice, freq_master, wbin, opr, emissivity, has_hard, ir_tau_min,
+                            T_surf, T_r)
+            fup_ir, fdn_ir = integrate_fluxes(
+                ir["fup_a"], ir["fdn_a"], freq_master[ir_slice[0]: ir_slice[1] + 2])
+            sol = radiate_solar(sol_slice, freq_master, wavl_master, wbin, opr, albedo, diurnal,
+                                photons, zenith_u, zenith_w, compute_amean=False)
+            fup_sol, fdn_sol = integrate_fluxes(
+                sol["fup_a"], sol["fdn_a"], freq_master[sol_slice[0]: sol_slice[1] + 2])
+            with span("adiabat.column.toa"):
+                ISR = fdn_sol[:, -1] - fup_sol[:, -1]
+                OLR = -(fdn_ir[:, -1] - fup_ir[:, -1])
+                return dict(ISR=ISR, OLR=OLR, fup_sol_toa=fup_sol[:, -1],
+                            fdn_sol_toa=fdn_sol[:, -1], P_surf=b["P_surf"], N_atmos=b["N_atmos"],
+                            N_surface=b["N_surface"], f_i_surf=b["prof"]["f_i_e"][:, 0])
 
     def toa_fluxes(T_surf, P_i_surf):
         m = column_model(T_surf, P_i_surf, T_trop_default)

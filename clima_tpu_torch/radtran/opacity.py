@@ -21,6 +21,7 @@ from ..ops.interp import hat_weights, pdot
 from ..ops.rorr import k_aee_mix, k_rorr_mix
 from ..ops import rorr_cuda
 from ..ops.rorr_cuda import k_rorr_mix_cuda
+from ..utils.profiling import span
 from .data import OpticalData
 
 __all__ = ["compute_opacity", "set_rorr_pallas_mode"]
@@ -144,7 +145,9 @@ def _rorr_sort(tau_ks_t, wbin_e):
 
 # compute_opacity's stages, in the order it runs them: each takes the
 # TOA-down inputs of _toa_down and what the stages before it made
-# (tools/opacity_substages.py times each one on the chain's own inputs)
+# (tools/opacity_substages.py times each one on the chain's own inputs; in
+# compute_opacity each runs in its span radtran.opacity.<stage> of the
+# recorder in utils/profiling.py)
 
 def _toa_down(P, T, densities, dz, pdensities, radii):
     """The ground-up inputs flipped TOA-down, then log10 P and the species
@@ -293,13 +296,24 @@ def compute_opacity(op: OpticalData, P, T, densities, dz, pdensities=None, radii
       tau (B, nw, nbin, nz), w0 (B, nw, nbin, nz), g (B, nw, nz),
       tau_band (B, nw, nz).
     """
-    P, T, densities, dz, pdensities, radii, log10P, cols = _toa_down(
-        P, T, densities, dz, pdensities, radii)
-    tau_ks = _k_distributions(op, _kweights(op, log10P, T), cols)
-    tau_kmix = _mix(op, tau_ks)
-    zeros = torch.zeros(T.shape + (op.nw,), dtype=T.dtype, device=T.device)
-    tausg = _rayleigh(op, cols, zeros)
-    taua = _absorption(op, T, densities, dz, cols, zeros)
-    tauc, tausc, g0c = _custom_properties(custom, P, dz, zeros)
-    taup, tausp, gt_num = _particles(op, pdensities, radii, dz, zeros)
-    return _combine(op, tau_kmix, tausg, taua, tauc, tausc, g0c, taup, tausp, gt_num)
+    with span("radtran.opacity"):
+        with span("radtran.opacity.prepare"):
+            P, T, densities, dz, pdensities, radii, log10P, cols = _toa_down(
+                P, T, densities, dz, pdensities, radii)
+            zeros = torch.zeros(T.shape + (op.nw,), dtype=T.dtype, device=T.device)
+        with span("radtran.opacity.kweights"):
+            weights = _kweights(op, log10P, T)
+        with span("radtran.opacity.kdist"):
+            tau_ks = _k_distributions(op, weights, cols)
+        with span("radtran.opacity.mix"):
+            tau_kmix = _mix(op, tau_ks)
+        with span("radtran.opacity.rayleigh"):
+            tausg = _rayleigh(op, cols, zeros)
+        with span("radtran.opacity.absorption"):
+            taua = _absorption(op, T, densities, dz, cols, zeros)
+        with span("radtran.opacity.custom"):
+            tauc, tausc, g0c = _custom_properties(custom, P, dz, zeros)
+        with span("radtran.opacity.particles"):
+            taup, tausp, gt_num = _particles(op, pdensities, radii, dz, zeros)
+        with span("radtran.opacity.combine"):
+            return _combine(op, tau_kmix, tausg, taua, tauc, tausc, g0c, taup, tausp, gt_num)

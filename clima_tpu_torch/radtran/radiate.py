@@ -17,6 +17,7 @@ from ..ops.twostream_cuda import (
     two_stream_solar_multi_weighted_cuda,
 )
 from ..physics.eqns import planck_fcn
+from ..utils.profiling import span
 
 __all__ = ["radiate_ir", "radiate_solar", "integrate_fluxes"]
 
@@ -41,35 +42,37 @@ def radiate_ir(channel_slice, freq_master, wbin, opr, surface_emissivity,
     ``T_surface`` (B,); ``T`` (B, nz) ground-up.
     Returns dict(fup_a, fdn_a, amean (B, nz+1, nw) ground-up, tau_band (B, nz, nw)).
     """
-    i0, i1 = channel_slice
-    tau = opr["tau"][:, i0 : i1 + 1]  # (B, nw, G, nz)
-    B, nw, nG, nz = tau.shape
+    with span("radtran.radiate_ir"):
+        with span("radtran.radiate_ir.prepare"):
+            i0, i1 = channel_slice
+            tau = opr["tau"][:, i0 : i1 + 1]  # (B, nw, G, nz)
+            B, nw, nG, nz = tau.shape
 
-    freq = freq_master[i0 : i1 + 2]
-    avg_freq = 0.5 * (freq[:-1] + freq[1:])  # (nw,)
-    # bplanck (B, nw, nz+1): TOA-down layer temps then surface
-    bplanck = torch.cat([
-        planck_fcn(avg_freq[None, :, None], torch.flip(T, dims=[1])[:, None, :]),
-        planck_fcn(avg_freq[None, :, None], T_surface[:, None, None]),
-    ], dim=-1)
+            freq = freq_master[i0 : i1 + 2]
+            avg_freq = 0.5 * (freq[:-1] + freq[1:])  # (nw,)
+            # bplanck (B, nw, nz+1): TOA-down layer temps then surface
+            bplanck = torch.cat([
+                planck_fcn(avg_freq[None, :, None], torch.flip(T, dims=[1])[:, None, :]),
+                planck_fcn(avg_freq[None, :, None], T_surface[:, None, None]),
+            ], dim=-1)
+            rows = (_rows(tau, nw, nG),
+                    _rows(opr["w0"][:, i0 : i1 + 1], nw, nG),
+                    _rows(opr["g"][:, i0 : i1 + 1, None, :], nw, nG),
+                    _rows(surface_emissivity[None, :, None].expand(B, nw, 1), nw, nG))
+            planck_rows = _rows(bplanck[:, :, None, :], nw, nG)
 
-    fup_w, fdn_w = two_stream_ir_weighted_cuda(
-        _rows(tau, nw, nG),
-        _rows(opr["w0"][:, i0 : i1 + 1], nw, nG),
-        _rows(opr["g"][:, i0 : i1 + 1, None, :], nw, nG),
-        _rows(surface_emissivity[None, :, None].expand(B, nw, 1), nw, nG),
-        has_hard_surface,
-        ir_tau_min,
-        _rows(bplanck[:, :, None, :], nw, nG),
-        wbin,
-    )  # (B*nw, nz+1) TOA-down
+        with span("radtran.radiate_ir.kernel"):
+            fup_w, fdn_w = two_stream_ir_weighted_cuda(
+                *rows, has_hard_surface, ir_tau_min, planck_rows, wbin,
+            )  # (B*nw, nz+1) TOA-down
 
-    return dict(
-        fup_a=_ground_up(fup_w.reshape(B, nw, nz + 1)),
-        fdn_a=_ground_up(fdn_w.reshape(B, nw, nz + 1)),
-        amean=torch.zeros((B, nz + 1, nw), dtype=tau.dtype, device=tau.device),
-        tau_band=_ground_up(opr["tau_band"][:, i0 : i1 + 1]),
-    )
+        with span("radtran.radiate_ir.finish"):
+            return dict(
+                fup_a=_ground_up(fup_w.reshape(B, nw, nz + 1)),
+                fdn_a=_ground_up(fdn_w.reshape(B, nw, nz + 1)),
+                amean=torch.zeros((B, nz + 1, nw), dtype=tau.dtype, device=tau.device),
+                tau_band=_ground_up(opr["tau_band"][:, i0 : i1 + 1]),
+            )
 
 
 def radiate_solar(channel_slice, freq_master, wavl_master, wbin, opr,
@@ -81,51 +84,53 @@ def radiate_solar(channel_slice, freq_master, wavl_master, wbin, opr,
     ``zenith_u``/``zenith_weights``: (n_zen,). ``surface_albedo`` (nw_sol,).
     Returns dict(fup_a, fdn_a, amean (B, nz+1, nw_sol) ground-up, tau_band).
     """
-    i0, i1 = channel_slice
-    tau = opr["tau"][:, i0 : i1 + 1]  # (B, nw, G, nz)
-    B, nw, nG, nz = tau.shape
+    with span("radtran.radiate_solar"):
+        with span("radtran.radiate_solar.prepare"):
+            i0, i1 = channel_slice
+            tau = opr["tau"][:, i0 : i1 + 1]  # (B, nw, G, nz)
+            B, nw, nG, nz = tau.shape
+            rows = (_rows(tau, nw, nG),
+                    _rows(opr["w0"][:, i0 : i1 + 1], nw, nG),
+                    _rows(opr["g"][:, i0 : i1 + 1, None, :], nw, nG))
+            albedo_rows = _rows(surface_albedo[None, :, None].expand(B, nw, 1), nw, nG)
 
-    # all zenith angles share each column's optical properties: one
-    # multi-right-hand-side solve per row, with the zenith and gauss weights
-    # applied inside it
-    am_w, fup_w, fdn_w = two_stream_solar_multi_weighted_cuda(
-        _rows(tau, nw, nG),
-        _rows(opr["w0"][:, i0 : i1 + 1], nw, nG),
-        _rows(opr["g"][:, i0 : i1 + 1, None, :], nw, nG),
-        zenith_u,
-        _rows(surface_albedo[None, :, None].expand(B, nw, 1), nw, nG),
-        zenith_weights,
-        wbin,
-        with_amean=compute_amean,
-    )  # each (B*nw, nz+1) TOA-down; am_w is None when compute_amean=False
+        # all zenith angles share each column's optical properties: one
+        # multi-right-hand-side solve per row, with the zenith and gauss
+        # weights applied inside it
+        with span("radtran.radiate_solar.kernel"):
+            am_w, fup_w, fdn_w = two_stream_solar_multi_weighted_cuda(
+                *rows, zenith_u, albedo_rows, zenith_weights, wbin, with_amean=compute_amean,
+            )  # each (B*nw, nz+1) TOA-down; am_w is None when compute_amean=False
 
-    # scale by stellar flux (mW/m2/Hz) and diurnal factor
-    scale = (photons_sol * diurnal_fac)[None, :, None]
-    fup_w = fup_w.reshape(B, nw, nz + 1) * scale
-    fdn_w = fdn_w.reshape(B, nw, nz + 1) * scale
+        with span("radtran.radiate_solar.finish"):
+            # scale by stellar flux (mW/m2/Hz) and diurnal factor
+            scale = (photons_sol * diurnal_fac)[None, :, None]
+            fup_w = fup_w.reshape(B, nw, nz + 1) * scale
+            fdn_w = fdn_w.reshape(B, nw, nz + 1) * scale
 
-    if compute_amean:
-        am_w = am_w.reshape(B, nw, nz + 1) * scale
-        # amean -> photons/cm^2/s (radiate.f90:167-179)
-        freq = freq_master[i0 : i1 + 2]
-        wavl = wavl_master[i0 : i1 + 2]
-        avg_freq = 0.5 * (freq[:-1] + freq[1:])
-        avg_wavl = 1.0e9 * const.c_light / avg_freq  # nm
-        am_w = am_w * (avg_freq / avg_wavl)[:, None]
-        am_w = am_w * (avg_wavl / (const.plank * const.c_light * 1.0e16)
-                       * (wavl[1:] - wavl[:-1]))[:, None]
-        amean_out = _ground_up(am_w)
-    else:
-        amean_out = torch.zeros((B, nz + 1, nw), dtype=tau.dtype, device=tau.device)
+            if compute_amean:
+                am_w = am_w.reshape(B, nw, nz + 1) * scale
+                # amean -> photons/cm^2/s (radiate.f90:167-179)
+                freq = freq_master[i0 : i1 + 2]
+                wavl = wavl_master[i0 : i1 + 2]
+                avg_freq = 0.5 * (freq[:-1] + freq[1:])
+                avg_wavl = 1.0e9 * const.c_light / avg_freq  # nm
+                am_w = am_w * (avg_freq / avg_wavl)[:, None]
+                am_w = am_w * (avg_wavl / (const.plank * const.c_light * 1.0e16)
+                               * (wavl[1:] - wavl[:-1]))[:, None]
+                amean_out = _ground_up(am_w)
+            else:
+                amean_out = torch.zeros((B, nz + 1, nw), dtype=tau.dtype, device=tau.device)
 
-    return dict(
-        fup_a=_ground_up(fup_w),
-        fdn_a=_ground_up(fdn_w),
-        amean=amean_out,
-        tau_band=_ground_up(opr["tau_band"][:, i0 : i1 + 1]),
-    )
+            return dict(
+                fup_a=_ground_up(fup_w),
+                fdn_a=_ground_up(fdn_w),
+                amean=amean_out,
+                tau_band=_ground_up(opr["tau_band"][:, i0 : i1 + 1]),
+            )
 
 
+@span("radtran.integrate")
 def integrate_fluxes(fup_a, fdn_a, freq_channel):
     """Frequency-integrate per-bin fluxes -> mW/m^2 (radiate.f90:182-192).
 
