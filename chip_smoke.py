@@ -61,10 +61,11 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    (rtol 1e-9); then one ``surface_temperature`` solve on the card for the
    first column, checked against the same solve by the port on the CPU
    (rtol 1e-8, run in a child process while the card works). Reports the
-   batch time, the three kernels' times at the path's shapes, the march's
-   operations per profile and its time with and without the CUDA graph of
-   one interval (and the capture seconds), the solve's time and
-   evaluations, and peak memory;
+   batch time, the three kernels' times at the path's shapes, the march
+   kernel's time beside its twin's with and without the CUDA graph of one
+   interval (the twin's operations per profile), the kernel held to the
+   graphed twin (rtol 1e-12), the solve's time and evaluations, and peak
+   memory;
 6. the RCE path: the nz=20, 4-zenith template (surface albedo 0.3),
    ``AdiabatClimate`` on the card at substeps=6, float64, warm-started by
    ``surface_temperature``, then ``c.RCE(P_i, T_surf, c.T)`` (the RC march
@@ -367,7 +368,7 @@ def phase_environment():
 
 def phase_build():
     print("== phase 2: build")
-    names = ("twostream", "rorr")
+    names = ("twostream", "rorr", "march")
     errors = []
 
     def build(name):
@@ -1159,17 +1160,29 @@ def _adiabat_on_card(device, smi, conn):
         print(f"  {name} at this path's shapes: {path_ms[name]:.4f} ms (CUDA events around the "
               f"wrapper call), bound {bound:.4f} ms")
 
-    # the march alone: its time with the interval graph and eagerly
+    # the march alone: the kernel, its twin with the interval graph and
+    # eagerly; the kernel held to the graphed twin
     RH = torch.ones(c.sp.ng, dtype=torch.float64, device=device)
-    profile = lambda: adiabat_profile.make_profile_core(c._par, RH, T_surf, P_i, float(c.T_trop))
+    args = (c._par, RH, T_surf, P_i, float(c.T_trop))
+    profile = lambda: adiabat_profile.make_profile_core(*args)
+    start = adiabat_profile._start(*args)
+    twin = lambda: adiabat_profile._march_torch(*args[:3], start)
     profile_ms = median_ms(profile, device, reps=3, warmup=1)
+    twin_ms = median_ms(twin, device, reps=1, warmup=0)
     eager = lambda fn, *args: (fn, fn(*args))  # graphed() replaced by plain calls
     with mock.patch.object(adiabat_profile, "graphed", eager):
-        eager_ms = median_ms(profile, device, reps=1, warmup=0)
+        eager_ms = median_ms(twin, device, reps=1, warmup=0)
+    got, want = profile(), twin()
+    gap = 0.0
+    for k, w in zip(("T_e", "z_e", "f_i_e", "P_trop"), want):
+        g, w = got[k].cpu().numpy(), w.cpu().numpy()
+        np.testing.assert_allclose(g, w, rtol=1e-12, atol=0.0, err_msg=f"march kernel {k}")
+        gap = max(gap, float(np.max(np.abs(g - w) / np.maximum(np.abs(w), 1e-300))))
     ops = march_ops_per_profile(c, T_np, P_np, ENTRY_NZ)
     print(f"  one profile (B={ENTRY_B}, {2 * ENTRY_NZ} intervals x {c.substeps} substeps): "
-          f"{profile_ms:.3f} ms with the interval graph, {eager_ms:.3f} ms eager; "
-          f"{ops} tensor operations (CPU dispatch count)")
+          f"{profile_ms:.3f} ms with the march kernel, its twin {twin_ms:.3f} ms with the "
+          f"interval graph and {eager_ms:.3f} ms eager ({ops} tensor operations, CPU dispatch "
+          f"count); kernel against the graphed twin: largest relative gap {gap:.3e}")
 
     # one surface_temperature solve on the card, against the CPU port's
     evals = collections.Counter()

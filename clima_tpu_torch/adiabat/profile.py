@@ -16,9 +16,11 @@ isothermal hydrostatic solution (general.f90:658-669).
 Every function works on a batch of columns: temperatures, pressures and
 altitudes are (B,), per-gas quantities (B, ng). The march has no host
 synchronisation: events are picked with ``argmin`` and ``gather``, the
-condensing-set update is a fixed-count loop. On a CUDA device the first
-interval of the grid is captured as a CUDA graph and replayed for the others
-(:func:`..ops.cuda_graph.graphed`); on the CPU the march runs eagerly.
+condensing-set update is a fixed-count loop. On a CUDA device the whole
+march is one kernel launch (:mod:`..ops.march_cuda`); on the CPU it runs
+eagerly through the kernel's twin :func:`_march_torch`, which on a card
+captures the first interval as a CUDA graph and replays it for the others
+(:func:`..ops.cuda_graph.graphed`).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import torch
 from .. import constants as const
 from ..config.species import GasThermo, heat_capacity
 from ..ops.cuda_graph import graphed
+from ..ops.march_cuda import moist_adiabat_march_cuda, pack_tables
 from ..physics import saturation
 from ..utils.profiling import span
 
@@ -60,6 +63,12 @@ class AdiabatParams:
     def __post_init__(self):
         if self.n_condensible < 0:
             object.__setattr__(self, "n_condensible", int(self.sat.has_sat.sum().item()))
+
+    @functools.cached_property
+    def march_tables(self):
+        """The march kernel's per-gas table and constants
+        (:func:`..ops.march_cuda.pack_tables`), packed on first use."""
+        return pack_tables(self)
 
     @classmethod
     def from_species(cls, sp, nz, planet_mass, planet_radius, P_top, substeps, device,
@@ -369,47 +378,59 @@ def _linspace(start, stop, num):
     return torch.cat([out, stop[:, None]], dim=-1)
 
 
-@span("adiabat.profile")
-def make_profile_core(par: AdiabatParams, RH, T_surf, P_i_surf, T_trop):
-    """Build the adiabat profiles of a batch of columns on the 2*nz+1 edge grid.
+class _Start(NamedTuple):
+    """What the march starts from (general.f90:199-259), (B, ...) tensors."""
 
-    RH (ng,) or (B, ng); T_surf (B,); P_i_surf (B, ng); T_trop a float or
-    (B,). Returns a dict of (B, ...) tensors: P_e (B, 2nz+1) (surface first,
-    decreasing), T_e, z_e, f_i_e (B, 2nz+1, ng), P_trop (B,) (negative where
-    no tropopause), N_surface (B, ng), P_surf (B,), mask_surf, r_dry.
-    """
-    with span("adiabat.profile.setup"):
-        dtype, device = T_surf.dtype, T_surf.device
-        B = T_surf.shape[0]
-        ne = 2 * par.nz + 1
-        T_trop = torch.as_tensor(T_trop, dtype=dtype, device=device).expand(B)
+    T_trop: torch.Tensor  # (B,)
+    P_e: torch.Tensor  # (B, 2nz+1), surface first
+    P_surf: torch.Tensor
+    N_surface: torch.Tensor
+    mask0: torch.Tensor  # the surface condensing set
+    r_dry: torch.Tensor
+    f_i_surf: torch.Tensor
 
-        P_i_atm, N_surface, mask0, r_dry = surface_classification(par, RH, T_surf, P_i_surf)
-        P_surf = torch.sum(P_i_atm, dim=-1)
 
-        # log-spaced pressure grid, endpoints pinned (general.f90:256-259)
-        P_top = torch.full_like(P_surf, par.P_top)
-        P_e = 10.0 ** _linspace(torch.log10(P_surf), torch.log10(P_top), ne)
-        P_e = torch.cat([P_surf[:, None], P_e[:, 1:-1], P_top[:, None]], dim=-1)
+def _start(par: AdiabatParams, RH, T_surf, P_i_surf, T_trop):
+    """The surface split, the pressure grid and the surface mixing ratios."""
+    dtype, device = T_surf.dtype, T_surf.device
+    B = T_surf.shape[0]
+    ne = 2 * par.nz + 1
+    T_trop = torch.as_tensor(T_trop, dtype=dtype, device=device).expand(B)
 
-        f_i_surf, _ = mixing_ratios(par, RH, mask0, r_dry, P_surf, T_surf)
+    P_i_atm, N_surface, mask0, r_dry = surface_classification(par, RH, T_surf, P_i_surf)
+    P_surf = torch.sum(P_i_atm, dim=-1)
 
-        kinks, kvalid = kink_temps(par.sat)
-        K = par.substeps
-        # log-P substep bounds of every interval, (B, ne-1, K)
-        lP = torch.log(P_e)
-        la_i, dl_i = lP[:, :-1, None], (lP[:, 1:] - lP[:, :-1])[:, :, None]
-        k = torch.arange(K, dtype=dtype, device=device)
-        la_all = la_i + dl_i * k / K
-        lb_all = la_i + dl_i * (k + 1) / K
+    # log-spaced pressure grid, endpoints pinned (general.f90:256-259)
+    P_top = torch.full_like(P_surf, par.P_top)
+    P_e = 10.0 ** _linspace(torch.log10(P_surf), torch.log10(P_top), ne)
+    P_e = torch.cat([P_surf[:, None], P_e[:, 1:-1], P_top[:, None]], dim=-1)
 
-        step = functools.partial(_interval, par, RH, r_dry, kinks, kvalid, T_trop, K)
-        state = (T_surf, torch.zeros_like(T_surf), mask0, torch.zeros_like(mask0[:, 0]),
-                 torch.full_like(T_surf, -1.0), torch.zeros_like(T_surf), _mubar(par, f_i_surf))
-    args = lambda i: (la_all[:, i], lb_all[:, i], P_e[:, i + 1])
-    # the first interval: on a card captured (its eager warm-up the span
-    # ops.cuda_graph.warmup) and replayed for the others; a replay overwrites
-    # the previous one's outputs, so the levels keep copies
+    f_i_surf, _ = mixing_ratios(par, RH, mask0, r_dry, P_surf, T_surf)
+    return _Start(T_trop, P_e, P_surf, N_surface, mask0, r_dry, f_i_surf)
+
+
+def _march_torch(par: AdiabatParams, RH, T_surf, s: _Start):
+    """The march in PyTorch, the twin of the kernel
+    (:func:`..ops.march_cuda.moist_adiabat_march_cuda`): on a card the first
+    interval of the grid is captured as a CUDA graph (its eager warm-up the
+    span ops.cuda_graph.warmup) and replayed for the others; on the CPU the
+    march runs eagerly. Returns (T_e, z_e, f_i_e, P_trop) as the kernel does."""
+    dtype, device = T_surf.dtype, T_surf.device
+    ne = s.P_e.shape[1]
+    kinks, kvalid = kink_temps(par.sat)
+    K = par.substeps
+    # log-P substep bounds of every interval, (B, ne-1, K)
+    lP = torch.log(s.P_e)
+    la_i, dl_i = lP[:, :-1, None], (lP[:, 1:] - lP[:, :-1])[:, :, None]
+    k = torch.arange(K, dtype=dtype, device=device)
+    la_all = la_i + dl_i * k / K
+    lb_all = la_i + dl_i * (k + 1) / K
+
+    step = functools.partial(_interval, par, RH, s.r_dry, kinks, kvalid, s.T_trop, K)
+    state = (T_surf, torch.zeros_like(T_surf), s.mask0, torch.zeros_like(s.mask0[:, 0]),
+             torch.full_like(T_surf, -1.0), torch.zeros_like(T_surf), _mubar(par, s.f_i_surf))
+    args = lambda i: (la_all[:, i], lb_all[:, i], s.P_e[:, i + 1])
+    # a replay overwrites the previous one's outputs, so the levels keep copies
     with span("adiabat.profile.capture"):
         if device.type == "cuda":
             replay, out = graphed(step, *args(0), *state)
@@ -423,16 +444,32 @@ def make_profile_core(par: AdiabatParams, RH, T_surf, P_i_surf, T_trop):
             T_lev.append(keep(out[0]))
             z_lev.append(keep(out[1]))
             f_lev.append(keep(out[7]))
+    tropped_final, P_trop = out[3], out[4]
+    return (torch.stack([T_surf, *T_lev], dim=-1),
+            torch.stack([torch.zeros_like(T_surf), *z_lev], dim=-1),
+            torch.stack([s.f_i_surf, *f_lev], dim=1),
+            torch.where(tropped_final, P_trop, -1.0))
+
+
+@span("adiabat.profile")
+def make_profile_core(par: AdiabatParams, RH, T_surf, P_i_surf, T_trop):
+    """Build the adiabat profiles of a batch of columns on the 2*nz+1 edge grid.
+
+    RH (ng,) or (B, ng); T_surf (B,); P_i_surf (B, ng); T_trop a float or
+    (B,). Returns a dict of (B, ...) tensors: P_e (B, 2nz+1) (surface first,
+    decreasing), T_e, z_e, f_i_e (B, 2nz+1, ng), P_trop (B,) (negative where
+    no tropopause), N_surface (B, ng), P_surf (B,), mask_surf, r_dry.
+    CUDA tensors march in one kernel launch (the span adiabat.profile.march),
+    CPU tensors through the kernel's twin.
+    """
+    with span("adiabat.profile.setup"):
+        s = _start(par, RH, T_surf, P_i_surf, T_trop)
+    if T_surf.device.type == "cuda":
+        with span("adiabat.profile.march"):
+            T_e, z_e, f_i_e, P_trop = moist_adiabat_march_cuda(
+                par, RH, T_surf, s.T_trop, s.mask0, s.r_dry, s.P_e, s.f_i_surf)
+    else:
+        T_e, z_e, f_i_e, P_trop = _march_torch(par, RH, T_surf, s)
     with span("adiabat.profile.assemble"):
-        tropped_final, P_trop = out[3], out[4]
-        return dict(
-            P_e=P_e,
-            T_e=torch.stack([T_surf, *T_lev], dim=-1),
-            z_e=torch.stack([torch.zeros_like(T_surf), *z_lev], dim=-1),
-            f_i_e=torch.stack([f_i_surf, *f_lev], dim=1),
-            P_trop=torch.where(tropped_final, P_trop, -1.0),
-            N_surface=N_surface,
-            P_surf=P_surf,
-            mask_surf=mask0,
-            r_dry=r_dry,
-        )
+        return dict(P_e=s.P_e, T_e=T_e, z_e=z_e, f_i_e=f_i_e, P_trop=P_trop,
+                    N_surface=s.N_surface, P_surf=s.P_surf, mask_surf=s.mask0, r_dry=s.r_dry)

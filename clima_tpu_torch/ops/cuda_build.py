@@ -40,7 +40,12 @@ _SIGNATURES = {
                                         _P, _P],
     },
     "rorr": {"clima_rorr_chain": [_I, _I, _I, _LL, _P, _P, _P, _P, _P]},
+    "march": {"clima_march": [_I, _I, _I, _I, _I, _I, _I] + [_P] * 15},
 }
+# library -> flags beyond _FLAGS. The march kernel repeats its twin's arithmetic
+# operation by operation, so it is built without contracting a product and a
+# sum into one rounding (a fused multiply-add), which no tensor operation does.
+_EXTRA_FLAGS = {"march": ["-fmad=false"]}
 
 
 def _nvcc():
@@ -52,16 +57,17 @@ def _nvcc():
 
 
 def load_library(name):
-    """The ctypes entry points of kernel library ``name`` ("twostream" or
-    "rorr") as a dict {C function name: function}, building ``csrc/<name>.cu``
-    first if needed. Different libraries may build concurrently."""
+    """The ctypes entry points of kernel library ``name`` ("twostream",
+    "rorr" or "march") as a dict {C function name: function}, building
+    ``csrc/<name>.cu`` first if needed. Different libraries may build
+    concurrently."""
     with _LOCK:
         lock = _LOCKS.setdefault(name, threading.Lock())
     with lock:
         if name in _LIBS:
             return _LIBS[name]
-        out, seconds, log = build_shared(_nvcc(), _FLAGS, os.path.join(_CSRC, name + ".cu"),
-                                         f"lib{name}")
+        out, seconds, log = build_shared(_nvcc(), _FLAGS + _EXTRA_FLAGS.get(name, []),
+                                         os.path.join(_CSRC, name + ".cu"), f"lib{name}")
         BUILD_INFO[name] = {"seconds": seconds, "log": log}
         lib = ctypes.CDLL(out)
         fns = {}

@@ -1,14 +1,17 @@
 """Replaying one step of a column march as a CUDA graph.
 
-The moist-adiabat march is a sequential loop of small tensor operations over
-a batch of columns: about 4700 per substep, 28000 per interval of the
-profile grid, some 2.8 million per nz=50 profile. Run eagerly on the card,
-each operation is a kernel launch paid on the host, so a profile is bound by
-launch latency. :func:`graphed` captures one step of such a loop (one
-interval) into a CUDA graph once and replays it for the other steps, so the
-host launches one graph per interval instead of every kernel. This is the
-counterpart of the ``jax.jit`` the JAX package puts around the same code; the
-march has no TPU kernel, and a hand-written march kernel is later work.
+A column march in PyTorch is a sequential loop of small tensor operations
+over a batch of columns: the moist-adiabat march's twin
+(``adiabat.profile._march_torch``) about 4700 per substep, 28000 per interval
+of the profile grid. Run eagerly on the card, each operation is a kernel
+launch paid on the host, so a march is bound by launch latency.
+:func:`graphed` captures one step of such a loop (one interval) into a CUDA
+graph once and replays it for the other steps, so the host launches one graph
+per interval instead of every kernel. This is the counterpart of the
+``jax.jit`` the JAX package puts around the same code. The RC march
+(``adiabat.profile_rc``) and the altitude solve (``adiabat.altitude``) run
+this way on the card; the moist-adiabat march itself is one hand-written
+kernel there (``ops.march_cuda``), and its twin replays a graph.
 
 Capture needs a step free of host synchronisation, which the march is (no
 ``.item()``, no branch on values). A failed capture raises; nothing falls

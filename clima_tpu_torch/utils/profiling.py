@@ -18,7 +18,7 @@ after a device sync, into device times on the same host clock through an
 anchor event taken when recording starts. Requests are recorded always, at
 call granularity: host start and end and the growth of the program's
 counters (``ops.cuda_graph``'s captures, capture and warm-up seconds and
-replays, and the ``launches`` of the six kernel wrappers). Records stay in
+replays, and the ``launches`` of the seven kernel wrappers). Records stay in
 memory, in a ring of :data:`SPAN_RING` spans (the oldest dropped and
 counted) and one of :data:`REQUEST_RING` requests, until :func:`records`
 returns them or :func:`clear` empties both. No span emits a
@@ -283,12 +283,12 @@ def span(name):
 
 def _counters():
     """The program's counters now: {counter: {function name: value}}."""
-    from ..ops import cuda_graph, rorr_cuda, twostream_cuda
+    from ..ops import cuda_graph, march_cuda, rorr_cuda, twostream_cuda
 
     wrappers = (rorr_cuda.k_rorr_mix_cuda, twostream_cuda.two_stream_ir_weighted_cuda,
                 twostream_cuda.two_stream_solar_multi_weighted_cuda,
                 twostream_cuda.two_stream_ir_auto, twostream_cuda.two_stream_solar_multi_auto,
-                twostream_cuda.two_stream_solar_auto)
+                twostream_cuda.two_stream_solar_auto, march_cuda.moist_adiabat_march_cuda)
     return dict(captures=dict(cuda_graph.CAPTURES), capture_s=dict(cuda_graph.CAPTURE_SECONDS),
                 warmup_s=dict(cuda_graph.WARMUP_SECONDS), replays=dict(cuda_graph.REPLAYS),
                 launches={w.__name__: w.launches for w in wrappers})

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain twins on the card (float64,
 RORR and the weighted kernels also in float32, RORR on ties; small shapes),
-the nbin > 16 RORR routing, AdiabatClimate on the card, the RCE path's
+the nbin > 16 RORR routing, the moist-adiabat march kernel against its
+graphed twin, AdiabatClimate on the card, the RCE path's
 pieces (the batched IR call, the RC march's cached CUDA graph, per batch
 size), the five batched column solves and the batched device RCE against the
 port on the CPU. Skipped where no
@@ -16,9 +17,10 @@ import numpy as np
 import pytest
 import torch
 
-from clima_tpu_torch.adiabat import AdiabatClimate, profile_rc, rce, rce_device
+from clima_tpu_torch.adiabat import AdiabatClimate, profile, profile_rc, rce, rce_device
+from clima_tpu_torch.config import species_from_dict
 from clima_tpu_torch.data import make_template
-from clima_tpu_torch.ops import rorr, rorr_cuda, twostream, twostream_cuda
+from clima_tpu_torch.ops import march_cuda, rorr, rorr_cuda, twostream, twostream_cuda
 from clima_tpu_torch.ops.cuda_graph import CAPTURES
 from clima_tpu_torch.parallel import (batched_make_column, batched_make_profile_bg_gas,
                                       batched_surface_temperature,
@@ -449,6 +451,128 @@ def test_adiabat_climate_on_the_card_matches_the_cpu(dev):
     np.testing.assert_allclose(gpu.TOA_fluxes(285.0, P_i), cpu.TOA_fluxes(285.0, P_i), rtol=1e-9)
     for k in ("P", "T", "z", "f_i", "N_atmos"):
         np.testing.assert_allclose(getattr(gpu, k), getattr(cpu, k), rtol=1e-10, err_msg=k)
+
+
+# --- the moist-adiabat march kernel (-k march_kernel) -----------------------
+
+MASS, RADIUS = 5.972e27, 6.371e8
+
+
+def _march_species(gases=None, extra=0, dry=False):
+    """The template's species: its first ``gases``, ``extra`` renamed copies
+    of its gases appended, or every saturation model taken away (``dry``)."""
+    doc = make_template(nz=4, n_zenith=1)["species"]
+    sp = [dict(g) for g in doc["species"]][:gases]
+    sp += [dict(sp[i % len(sp)], name=f"{sp[i % len(sp)]['name']}_{i}") for i in range(extra)]
+    if dry:
+        for g in sp:
+            g.pop("saturation", None)
+    return species_from_dict(dict(doc, species=sp))
+
+
+def _march_columns(names, B, seed, T_surf=(260.0, 320.0), co2=(40.0, 4000.0), h2o=270e6):
+    """The sweep's mix: T_surf uniform, CO2 log-uniform (dyn/cm^2), H2O and
+    1 bar of N2, the rest 1e-15."""
+    rng = np.random.default_rng(seed)
+    P_i = np.full((B, len(names)), 1e-15)
+    P_i[:, names.index("H2O")], P_i[:, names.index("N2")] = h2o, 1e6
+    P_i[:, names.index("CO2")] = np.exp(rng.uniform(*np.log(co2), B))
+    return rng.uniform(*T_surf, B), P_i
+
+
+def _march_case(name):
+    """(species, nz, substeps, T_surf, P_i_surf, T_trop, RH, thermo edit) of a
+    march case; every case but "dry" has latent-heat kinks (T_triple of
+    CO2, and of H2O in columns above 273.15 K), "co2_onset" and "rh_rows"
+    condensation onsets aloft, "tables" columns that leave the heat-capacity
+    tables (N2's lowest edge moved to 230 K, and a surface at 7000 K)."""
+    sp = _march_species(**{"ng5": dict(gases=5), "ng12": dict(extra=5),
+                           "dry": dict(dry=True)}.get(name, {}))
+    names = sp.gas_names
+    B, nz, K = {"sweep": (1024, 20, 6), "b1": (1, 12, 6), "b9": (9, 12, 6),
+                "k1": (64, 12, 1)}.get(name, (40, 12, 6))
+    T_surf, P_i = _march_columns(names, B, seed=B + nz + len(name))
+    T_trop, RH = 180.0, np.ones(len(names))
+    if name == "kinks":  # every column crosses H2O's triple point
+        T_surf = np.linspace(274.0, 300.0, B)
+    if name == "co2_onset":  # cold, CO2-rich, a little water
+        T_surf = np.linspace(215.0, 250.0, B)
+        P_i[:, names.index("CO2")] = np.linspace(1e6, 8e6, B)[::-1]
+        P_i[:, names.index("H2O")] = 1e2
+        T_trop = np.linspace(90.0, 140.0, B)
+    if name == "rh_rows":  # subsaturated water, RH per column and gas
+        P_i[:, names.index("H2O")] = 0.02e6
+        RH = np.random.default_rng(5).uniform(0.5, 1.0, (B, len(names)))
+        T_trop = np.linspace(150.0, 200.0, B)
+    edit = None
+    if name == "tables":
+        T_surf[-1] = 7000.0
+        edit = (names.index("N2"), 230.0)
+    return sp, nz, K, T_surf, P_i, T_trop, RH, edit
+
+
+MARCH_CASES = ("sweep", "kinks", "co2_onset", "rh_rows", "dry", "ng5", "ng12", "b1", "b9", "k1",
+               "tables")
+
+
+@pytest.mark.parametrize("case, dtype", [(c, torch.float64) for c in MARCH_CASES] +
+                         [(c, torch.float32) for c in MARCH_CASES if c != "tables"])
+def test_march_kernel_matches_graphed_twin(dev, case, dtype):
+    """make_profile_core on the card (one launch of the march kernel) against
+    the graphed torch march (profile._march_torch) from the same start, on
+    T_e, z_e, f_i_e, P_trop and N_surface. float64 at rtol 1e-12 (NaN where
+    the twin gives NaN); float32 within 1e-4 of the largest value, as the
+    file's other float32 twins, on the cases whose values stay finite."""
+    sp, nz, K, T_surf, P_i, T_trop, RH, edit = _march_case(case)
+    par = profile.AdiabatParams.from_species(sp, nz, MASS, RADIUS, 1.0, K, dev, dtype)
+    assert (par.n_condensible == 0) == (case == "dry")
+    if edit is not None:
+        temps = par.thermo.temps.clone()
+        temps[edit[0], 0] = edit[1]
+        par = dataclasses.replace(par, thermo=dataclasses.replace(par.thermo, temps=temps))
+    t = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)  # noqa: E731
+    args = (par, t(RH), t(T_surf), t(P_i), t(T_trop) if np.ndim(T_trop) else T_trop)
+    n, caps = march_cuda.moist_adiabat_march_cuda.launches, CAPTURES.get("_interval", 0)
+    got = profile.make_profile_core(*args)
+    assert march_cuda.moist_adiabat_march_cuda.launches == n + 1
+    assert CAPTURES.get("_interval", 0) == caps
+    start = profile._start(*args)
+    want = dict(zip(("T_e", "z_e", "f_i_e", "P_trop"), profile._march_torch(*args[:3], start)),
+                N_surface=start.N_surface)
+    assert CAPTURES.get("_interval", 0) == caps + 1
+    keys = ("T_e", "z_e", "f_i_e", "P_trop", "N_surface")
+    for k in keys:
+        assert got[k].dtype == dtype and got[k].shape == want[k].shape, k
+    if dtype == torch.float32:
+        _close_f32([got[k] for k in keys], [want[k] for k in keys])
+        return
+    for k in keys:
+        np.testing.assert_allclose(got[k].cpu().numpy(), want[k].cpu().numpy(), rtol=1e-12,
+                                   atol=0.0, err_msg=k)
+    if edit is not None:
+        T_e = got["T_e"].cpu().numpy()
+        assert np.isnan(T_e[-1, 1:]).all() and np.isnan(T_e).any(axis=1)[:-1].all()
+
+
+def test_march_kernel_launches_once_per_column_call(dev):
+    """A column_model call on the card records, in its request's counters,
+    one launch of the march kernel and no capture or replay of the march's
+    interval; the altitude solve still captures its interval once and
+    replays it 2 nz - 2 times."""
+    from clima_tpu_torch.parallel.pipeline import make_column_fns
+    from clima_tpu_torch.utils import profiling
+
+    tpl = make_template(nz=12, n_zenith=2)
+    c = AdiabatClimate(tpl["species"], tpl["settings"], tpl["star"], tpl["datadir"], substeps=2)
+    T_surf, P_i = _march_columns(c.species_names, 2, seed=3)
+    fns = make_column_fns(c)
+    out = fns["column_model"](torch.tensor(T_surf, device=dev), torch.tensor(P_i, device=dev),
+                              c.T_trop)
+    assert torch.isfinite(out["OLR"]).all()
+    growth = profiling.records()["requests"][-1]["counters"]
+    assert growth["launches"]["moist_adiabat_march_cuda"] == 1
+    assert growth["captures"] == {"_rk4_interval": 1}
+    assert growth["replays"] == {"_rk4_interval": 2 * c.nz - 2}
 
 
 def _rce_model(nz=20):

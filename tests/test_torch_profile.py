@@ -1,7 +1,12 @@
 """Profile and altitude cores of the PyTorch port against clima_tpu
 (float64, CPU): the moist-adiabat march batched over columns against the JAX
 package's per-column make_profile_core, the hydrostatic altitude solve with
-and without reference_pressure, and the dry prescribed profile, at rtol 1e-10."""
+and without reference_pressure, and the dry prescribed profile, at rtol 1e-10.
+Also the march kernel's packed per-gas tables (ops/march_cuda.py) against the
+saturation and heat-capacity models, and its wrapper's place among the
+program's counters (the kernel itself runs on the card: test_torch_cuda.py)."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -14,10 +19,14 @@ from clima_tpu.adiabat.profile_dry import make_profile_dry_core as ref_dry
 from clima_tpu.config import load_species as ref_load_species
 from clima_tpu.data import write_species_yaml
 
+from clima_tpu_torch import constants as const
 from clima_tpu_torch.adiabat import profile
 from clima_tpu_torch.adiabat.altitude import compute_altitude_core
 from clima_tpu_torch.adiabat.profile_dry import make_profile_dry_core
-from clima_tpu_torch.config import load_species
+from clima_tpu_torch.config import heat_capacity, load_species
+from clima_tpu_torch.ops import march_cuda
+from clima_tpu_torch.physics import saturation
+from clima_tpu_torch.utils import profiling
 from test_torch_threads import _one_torch_thread  # noqa: F401 (autouse: one CPU thread)
 
 
@@ -142,3 +151,62 @@ def test_make_profile_dry_core_matches_reference(profiles, params):
         for k in ("P_e", "T_e", "z_e", "f_i_e", "lapse_rate_e"):
             np.testing.assert_allclose(out[k][b].numpy(), np.asarray(want[k]), rtol=RTOL,
                                        err_msg=f"column {b} {k}")
+
+
+def test_march_tables_read_as_the_models(params):
+    """The march kernel's per-gas rows, read as a lane reads its own
+    (march_cuda.sat_pressure_ref, heat_capacity_ref), give
+    saturation.sat_pressure in each condensible gas's three regimes (bitwise)
+    and heat_capacity in every range of every gas (rtol 1e-14: the
+    polynomial's terms are summed in another order), NaN outside the edges;
+    the constants are the numbers the twin's expressions form. The tables
+    are packed once per AdiabatParams."""
+    _, par, _ = params
+    tables, consts = par.march_tables
+    assert par.march_tables[0] is tables
+    assert dataclasses.replace(par, P_top=2.0).march_tables[0] is not tables
+    ng, nr = tables.shape[0], par.thermo.temps.shape[1] - 1
+    assert tables.shape == (ng, 22 + 8 * nr) and tables.dtype == torch.float64
+    T = torch.tensor([120.0, 200.0, 216.58, 250.0, 273.15, 290.0, 304.13, 400.0, 647.0, 700.0,
+                      999.0, 1000.0, 1250.0, 1300.0, 1700.0, 2000.0, 2500.0, 3000.0, 5999.0,
+                      6000.0, 7000.0])
+    sat = par.sat
+    regime = (T[:, None] > sat.T_triple).long() + (T[:, None] >= sat.T_critical).long()
+    for g in np.flatnonzero(sat.has_sat.numpy()):
+        assert set(regime[:, g].tolist()) == {0, 1, 2}, g
+    torch.testing.assert_close(march_cuda.sat_pressure_ref(tables, T),
+                               saturation.sat_pressure(sat, T), rtol=0, atol=0)
+    edges = par.thermo.temps
+    rng = torch.sum(T[:, None, None] >= edges[:, :-1], dim=-1) - 1
+    inside = (T[:, None] >= edges[:, 0]) & (T[:, None] < edges[:, -1])
+    for g in range(ng):
+        n_g = int(torch.unique(edges[g]).numel()) - 1  # the gas's own ranges
+        assert set(rng[inside[:, g], g].tolist()) >= set(range(n_g)), g
+    assert not inside.all(axis=0).any()
+    got = march_cuda.heat_capacity_ref(tables, nr, T)
+    want = heat_capacity(par.thermo, T)
+    assert torch.equal(torch.isnan(got), ~inside) and torch.equal(torch.isnan(want), ~inside)
+    torch.testing.assert_close(got, want, rtol=1e-14, atol=0, equal_nan=True)
+    assert consts.tolist() == [const.Rgas, const.Rgas_si, const.G_grav * (MASS / 1.0e3), RADIUS,
+                               const.N_avo * const.k_boltz, profile.G_GRAV_CGS * MASS,
+                               saturation.BIG, profile.F_DRY_MIN]
+
+
+def test_march_kernel_wrapper_is_counted_and_refuses_the_cpu(params):
+    """The march wrapper's launches are among the program's counters; it
+    refuses CPU tensors, and make_profile_core on the CPU runs the twin and
+    launches nothing."""
+    _, par, names = params
+    assert profiling._counters()["launches"]["moist_adiabat_march_cuda"] == \
+        march_cuda.moist_adiabat_march_cuda.launches
+    par = dataclasses.replace(par, nz=2, substeps=1)
+    T_surf, P_i, T_trop = (torch.tensor(x[:1]) for x in _columns(names))
+    RH = torch.ones(len(names), dtype=torch.float64)
+    n = march_cuda.moist_adiabat_march_cuda.launches
+    out = profile.make_profile_core(par, RH, T_surf, P_i, T_trop)
+    assert march_cuda.moist_adiabat_march_cuda.launches == n
+    s = profile._start(par, RH, T_surf, P_i, T_trop)
+    with pytest.raises(ValueError, match="CUDA device"):
+        march_cuda.moist_adiabat_march_cuda(par, RH, T_surf, s.T_trop, s.mask0, s.r_dry, s.P_e,
+                                            s.f_i_surf)
+    assert out["T_e"].shape == (1, 5) and out["f_i_e"].shape == (1, 5, len(names))
