@@ -35,7 +35,7 @@ import torch
 from .. import constants as const
 from ..config.species import GasThermo, heat_capacity
 from ..ops.cuda_graph import graphed
-from ..ops.march_cuda import moist_adiabat_march_cuda, pack_tables
+from ..ops.march_cuda import count_events, moist_adiabat_march_cuda, pack_tables
 from ..physics import saturation
 from ..utils.profiling import span
 
@@ -225,7 +225,8 @@ def _rk4_event_split(par, RH, mask, r_dry, rn, la, lb, T, z, kinks, kvalid):
     The first event's location is refined with two secant iterations on the
     branch-pinned trajectory, and the step restarts on the other side (other
     latent-heat branch / grown condensing set). Columns without an event keep
-    the unsplit step.
+    the unsplit step. Returns (T, z, split): split (B,) bool where the step
+    was split.
     """
     ng = par.gas_masses.shape[0]
     Pa, Pb = torch.exp(la), torch.exp(lb)
@@ -284,7 +285,7 @@ def _rk4_event_split(par, RH, mask, r_dry, rn, la, lb, T, z, kinks, kvalid):
     mask2 = mask | ((gas == j_gas[:, None]) & ~is_kink[:, None])
     piece2 = _piece(par, mask2, _norm_dry(mask2, r_dry), T1)
     T2, z2 = _rk4(par, RH, piece2, Pc, Pb, Tc, zc)
-    return torch.where(has_event, T2, T1u), torch.where(has_event, z2, z1u)
+    return torch.where(has_event, T2, T1u), torch.where(has_event, z2, z1u), has_event
 
 
 def _altitude_isothermal(par: AdiabatParams, P, T, mubar, P0, z0):
@@ -313,28 +314,32 @@ def surface_classification(par: AdiabatParams, RH, T_surf, P_i_surf):
 
 
 def _substep(par, RH, r_dry, kinks, kvalid, T_trop, la, lb, T, z, mask, tropped, P_trop,
-             z_trop, mubar_trop):
+             z_trop, mubar_trop, splits):
     """One substep of the march over log-P [la, lb], all columns at once:
     the RK4 step, the tropopause crossing inside it, the isothermal
-    stratosphere and the condensing-set growth. Returns the new state."""
+    stratosphere and the condensing-set growth. Returns the new state;
+    ``splits`` (B,) counts the substeps below the tropopause whose step to
+    lb was split at an event, as the kernel counts them."""
     rn = _norm_dry(mask, r_dry)
     if par.n_condensible:
         def step(lb_):
             return _rk4_event_split(par, RH, mask, r_dry, rn, la, lb_, T, z, kinks, kvalid)
     else:
-        # no saturation regimes: the branch constants are never read
+        # no saturation regimes: the branch constants are never read, no step splits
         def step(lb_):
-            return _rk4(par, RH, _piece(par, mask, rn, T), torch.exp(la), torch.exp(lb_), T, z)
+            return (*_rk4(par, RH, _piece(par, mask, rn, T), torch.exp(la), torch.exp(lb_), T, z),
+                    torch.zeros_like(tropped))
 
     Pb = torch.exp(lb)
-    T_new, z_new = step(lb)
+    T_new, z_new, split = step(lb)
+    splits = splits + (split & ~tropped).to(splits.dtype)
 
     # tropopause crossing inside this substep (root T - T_trop)
     crossed = (~tropped) & (T_new <= T_trop)
     theta = torch.where(crossed, (T - T_trop) / torch.clamp(T - T_new, min=1e-30), 1.0)
     lP_cross = la + theta * (lb - la)
     P_cross = torch.exp(lP_cross)
-    _, z_cross = step(lP_cross)
+    _, z_cross, _ = step(lP_cross)
     psat_trop = RH * saturation.sat_pressure(par.sat, T_trop)
     f_cross, _ = _mix(psat_trop, P_cross, mask, ~mask, rn)
     mubar_cross = _mubar(par, f_cross)
@@ -352,15 +357,16 @@ def _substep(par, RH, r_dry, kinks, kvalid, T_trop, la, lb, T, z, mask, tropped,
     # condensing-set growth (only below the tropopause)
     mask_new = update_mask(par, RH, mask, r_dry, Pb, T_out)
     mask_out = torch.where(tropped_new[:, None], mask, mask_new)
-    return T_out, z_out, mask_out, tropped_new, P_trop, z_trop, mubar_trop
+    return T_out, z_out, mask_out, tropped_new, P_trop, z_trop, mubar_trop, splits
 
 
 def _interval(par, RH, r_dry, kinks, kvalid, T_trop, K, la, lb, P_end, T, z, mask, tropped,
-              P_trop, z_trop, mubar_trop):
+              P_trop, z_trop, mubar_trop, splits):
     """The K substeps of one grid interval (la/lb (B, K) substep bounds,
     P_end (B,) its upper edge): the new state and the mixing ratios at the
-    interval's end, (T, z, mask, tropped, P_trop, z_trop, mubar_trop, f_i)."""
-    state = (T, z, mask, tropped, P_trop, z_trop, mubar_trop)
+    interval's end, (T, z, mask, tropped, P_trop, z_trop, mubar_trop,
+    splits, f_i)."""
+    state = (T, z, mask, tropped, P_trop, z_trop, mubar_trop, splits)
     for k in range(K):
         state = _substep(par, RH, r_dry, kinks, kvalid, T_trop, la[:, k], lb[:, k], *state)
     T, z, mask, tropped, P_trop = state[:5]
@@ -414,7 +420,9 @@ def _march_torch(par: AdiabatParams, RH, T_surf, s: _Start):
     (:func:`..ops.march_cuda.moist_adiabat_march_cuda`): on a card the first
     interval of the grid is captured as a CUDA graph (its eager warm-up the
     span ops.cuda_graph.warmup) and replayed for the others; on the CPU the
-    march runs eagerly. Returns (T_e, z_e, f_i_e, P_trop) as the kernel does."""
+    march runs eagerly. Returns (T_e, z_e, f_i_e, P_trop, events) as the
+    kernel does, and adds the events to its own counters while the program
+    records (:func:`..ops.march_cuda.count_events`)."""
     dtype, device = T_surf.dtype, T_surf.device
     ne = s.P_e.shape[1]
     kinks, kvalid = kink_temps(par.sat)
@@ -428,7 +436,8 @@ def _march_torch(par: AdiabatParams, RH, T_surf, s: _Start):
 
     step = functools.partial(_interval, par, RH, s.r_dry, kinks, kvalid, s.T_trop, K)
     state = (T_surf, torch.zeros_like(T_surf), s.mask0, torch.zeros_like(s.mask0[:, 0]),
-             torch.full_like(T_surf, -1.0), torch.zeros_like(T_surf), _mubar(par, s.f_i_surf))
+             torch.full_like(T_surf, -1.0), torch.zeros_like(T_surf), _mubar(par, s.f_i_surf),
+             torch.zeros(T_surf.shape, dtype=torch.int32, device=device))
     args = lambda i: (la_all[:, i], lb_all[:, i], s.P_e[:, i + 1])
     # a replay overwrites the previous one's outputs, so the levels keep copies
     with span("adiabat.profile.capture"):
@@ -437,18 +446,23 @@ def _march_torch(par: AdiabatParams, RH, T_surf, s: _Start):
             keep = torch.clone
         else:
             replay, out, keep = step, step(*args(0), *state), (lambda t: t)
-    T_lev, z_lev, f_lev = [out[0]], [out[1]], [out[7]]
+    T_lev, z_lev, f_lev = [out[0]], [out[1]], [out[8]]
     for i in range(1, ne - 1):
         with span("adiabat.profile.replay"):
-            out = replay(*args(i), *out[:7])
+            out = replay(*args(i), *out[:8])
             T_lev.append(keep(out[0]))
             z_lev.append(keep(out[1]))
-            f_lev.append(keep(out[7]))
-    tropped_final, P_trop = out[3], out[4]
+            f_lev.append(keep(out[8]))
+    mask_final, tropped_final, P_trop, splits = out[2], out[3], out[4], out[7]
+    events = torch.stack([splits, (mask_final & ~s.mask0).any(dim=-1).to(torch.int32)], dim=-1)
+    count_events(_march_torch, events)
     return (torch.stack([T_surf, *T_lev], dim=-1),
             torch.stack([torch.zeros_like(T_surf), *z_lev], dim=-1),
             torch.stack([s.f_i_surf, *f_lev], dim=1),
-            torch.where(tropped_final, P_trop, -1.0))
+            torch.where(tropped_final, P_trop, -1.0), events)
+
+
+_march_torch.event_splits = _march_torch.onset_columns = 0
 
 
 @span("adiabat.profile")
@@ -459,17 +473,18 @@ def make_profile_core(par: AdiabatParams, RH, T_surf, P_i_surf, T_trop):
     (B,). Returns a dict of (B, ...) tensors: P_e (B, 2nz+1) (surface first,
     decreasing), T_e, z_e, f_i_e (B, 2nz+1, ng), P_trop (B,) (negative where
     no tropopause), N_surface (B, ng), P_surf (B,), mask_surf, r_dry.
-    CUDA tensors march in one kernel launch (the span adiabat.profile.march),
-    CPU tensors through the kernel's twin.
+    CUDA tensors march in one kernel launch (the span adiabat.profile.march,
+    the launch alone adiabat.profile.march.kernel), CPU tensors through the
+    kernel's twin.
     """
     with span("adiabat.profile.setup"):
         s = _start(par, RH, T_surf, P_i_surf, T_trop)
     if T_surf.device.type == "cuda":
         with span("adiabat.profile.march"):
-            T_e, z_e, f_i_e, P_trop = moist_adiabat_march_cuda(
+            T_e, z_e, f_i_e, P_trop, _ = moist_adiabat_march_cuda(
                 par, RH, T_surf, s.T_trop, s.mask0, s.r_dry, s.P_e, s.f_i_surf)
     else:
-        T_e, z_e, f_i_e, P_trop = _march_torch(par, RH, T_surf, s)
+        T_e, z_e, f_i_e, P_trop, _ = _march_torch(par, RH, T_surf, s)
     with span("adiabat.profile.assemble"):
         return dict(P_e=s.P_e, T_e=T_e, z_e=z_e, f_i_e=f_i_e, P_trop=P_trop,
                     N_surface=s.N_surface, P_surf=s.P_surf, mask_surf=s.mask0, r_dry=s.r_dry)

@@ -21,7 +21,11 @@
 // with torch.where, a column here takes its own branch: the secant and the
 // second piece only on an event, the re-step only on a crossing, and
 // nothing but the isothermal altitude above the tropopause. Out-of-range
-// heat capacities are NaN and propagate as in the twin. The library is
+// heat capacities are NaN and propagate as in the twin. Beside the profile a
+// column writes, once, its `events` as the twin counts them: the substeps
+// below the tropopause whose step to the substep's end was split (a re-step
+// to the crossing is not counted), and whether its condensing set grew
+// above the surface. The library is
 // built with -fmad=false (ops/cuda_build.py): every operation rounds as the
 // twin's tensor operation does, in the twin's order, so the march's discrete
 // choices (events, the condensing set, the tropopause) fall as the twin's.
@@ -91,6 +95,7 @@ struct Args {
   T* z_e;
   T* f_e;
   T* P_trop;
+  int* events;  // (B, 2): event-split substeps, onset above the surface
 };
 
 template <typename T>
@@ -236,9 +241,10 @@ __device__ __forceinline__ bool before(T a, int ia, T b, int ib) {
 }
 
 // One substep over log-P [la, lb] from (Tv, zv) (profile._substep's step):
-// with condensible gases profile._rk4_event_split, else one RK4.
+// with condensible gases profile._rk4_event_split, else one RK4. Returns
+// whether the step was split at an event.
 template <typename T>
-__device__ __forceinline__ void step(const Lane<T>& q, bool m, T rn, T la, T lb, int n_cond, T& Tv,
+__device__ __forceinline__ bool step(const Lane<T>& q, bool m, T rn, T la, T lb, int n_cond, T& Tv,
                                      T& zv) {
   const T Pa = exp_(la), Pb = exp_(lb);
   const T T0 = Tv, z0 = zv;
@@ -247,7 +253,7 @@ __device__ __forceinline__ void step(const Lane<T>& q, bool m, T rn, T la, T lb,
   rk4(q, p0, Pa, Pb, T1, z1);
   Tv = T1;
   zv = z1;
-  if (n_cond == 0) return;
+  if (n_cond == 0) return false;
 
   // candidate events with linear-in-theta first estimates: [T_triple kinks,
   // T_critical kinks, condensation onsets], gas g's at g, ng + g, 2 ng + g
@@ -271,7 +277,7 @@ __device__ __forceinline__ void step(const Lane<T>& q, bool m, T rn, T la, T lb,
     const int j_o = __shfl_xor_sync(q.gm, j, o, q.G);
     if (before(th_o, j_o, th, j)) th = th_o, j = j_o;
   }
-  if (!(isfinite(th) && th < T(1))) return;  // no event: the unsplit step
+  if (!(isfinite(th) && th < T(1))) return false;  // no event: the unsplit step
 
   const bool kink = j < 2 * q.ng;
   const int jg = kink ? 0 : j - 2 * q.ng;  // the gas of an onset
@@ -299,6 +305,7 @@ __device__ __forceinline__ void step(const Lane<T>& q, bool m, T rn, T la, T lb,
   rk4(q, p2, Pc, Pb, Tc, zc);
   Tv = Tc;
   zv = zc;
+  return true;
 }
 
 // profile.update_mask: the condensing set's growth at (P, Tv)
@@ -351,6 +358,8 @@ __global__ void __launch_bounds__(BLOCK, 1) march_kernel(const Args<T> a) {
   const T Tt = a.T_trop[b];
   T Tv = a.T_surf[b], zv = T(0), P_trop = T(-1), z_trop = T(0), mubar_trop = T(0);
   bool m = q.act && a.mask0[(size_t)b * ng + g] != 0, tropped = false;
+  const bool m0 = m;
+  int splits = 0;
   if (g == 0) Te[0] = Tv, ze[0] = T(0);
   if (q.act) fe[g] = a.f_surf[(size_t)b * ng + g];
   const T ps_trop = psat(q, branch(q, Tt), Tt);
@@ -371,12 +380,13 @@ __global__ void __launch_bounds__(BLOCK, 1) march_kernel(const Args<T> a) {
 #pragma unroll 1
         for (int pass = 0; pass < 2; ++pass) {
           T Ts = Tv, zs = zv;
-          step(q, m, rn, la, lP_end, a.n_cond, Ts, zs);
+          const bool split = step(q, m, rn, la, lP_end, a.n_cond, Ts, zs);
           if (pass == 1) {
             z_trop = zs;
             break;
           }
           Tn = Ts, zn = zs;
+          splits += int(split);
           if (!(Tn <= Tt)) break;
           const T theta = (Tv - Tt) / at_least(Tv - Tn, T(1e-30));
           lP_end = la + theta * (lb - la);
@@ -401,14 +411,19 @@ __global__ void __launch_bounds__(BLOCK, 1) march_kernel(const Args<T> a) {
     if (g == 0) Te[i + 1] = Tv, ze[i + 1] = zv;
     if (q.act) fe[(size_t)(i + 1) * ng + g] = fi;
   }
-  if (g == 0) a.P_trop[b] = tropped ? P_trop : T(-1);
+  const bool grew = q.sum(T(m && !m0)) > T(0);
+  if (g == 0) {
+    a.P_trop[b] = tropped ? P_trop : T(-1);
+    a.events[2 * (size_t)b] = splits;
+    a.events[2 * (size_t)b + 1] = int(grew);
+  }
 }
 
 template <typename T>
 int launch(int B, int ng, int nr, int ne, int K, int n_cond, const void* tab, const void* consts,
            const void* T_surf, const void* T_trop, const void* RH, const void* r_dry,
            const void* mask0, const void* f_surf, const void* P_e, const void* lP, void* T_e,
-           void* z_e, void* f_e, void* P_trop, cudaStream_t s) {
+           void* z_e, void* f_e, void* P_trop, void* events, cudaStream_t s) {
   int G = 1;
   while (G < ng) G <<= 1;
   const Args<T> a{B, ng, nr, ne, K, n_cond, G,
@@ -418,7 +433,7 @@ int launch(int B, int ng, int nr, int ne, int K, int n_cond, const void* tab, co
                   static_cast<const unsigned char*>(mask0), static_cast<const T*>(f_surf),
                   static_cast<const T*>(P_e), static_cast<const T*>(lP),
                   static_cast<T*>(T_e), static_cast<T*>(z_e), static_cast<T*>(f_e),
-                  static_cast<T*>(P_trop)};
+                  static_cast<T*>(P_trop), static_cast<int*>(events)};
   const int per_block = BLOCK / G;
   const size_t smem = size_t(ng) * (TEMPS + 8 * nr + 1) * sizeof(T);
   if (smem > 48 * 1024) {
@@ -432,17 +447,19 @@ int launch(int B, int ng, int nr, int ne, int K, int n_cond, const void* tab, co
 
 }  // namespace
 
-// The march of B columns (ops/march_cuda.py, moist_adiabat_march_cuda).
+// The march of B columns (ops/march_cuda.py, moist_adiabat_march_cuda);
+// events is (B, 2) int32.
 // Returns a CUDA error code (0 on success); -1 for arguments out of range.
 extern "C" int clima_march(int is_f64, int B, int ng, int nr, int ne, int K, int n_cond,
                            const void* tab, const void* consts, const void* T_surf,
                            const void* T_trop, const void* RH, const void* r_dry,
                            const void* mask0, const void* f_surf, const void* P_e, const void* lP,
-                           void* T_e, void* z_e, void* f_e, void* P_trop, void* stream) {
+                           void* T_e, void* z_e, void* f_e, void* P_trop, void* events,
+                           void* stream) {
   if (B < 1 || ng < 1 || ng > 32 || nr < 1 || ne < 2 || K < 1 || n_cond < 0) return -1;
   cudaStream_t s = (cudaStream_t)stream;
   return is_f64 ? launch<double>(B, ng, nr, ne, K, n_cond, tab, consts, T_surf, T_trop, RH, r_dry,
-                                 mask0, f_surf, P_e, lP, T_e, z_e, f_e, P_trop, s)
+                                 mask0, f_surf, P_e, lP, T_e, z_e, f_e, P_trop, events, s)
                 : launch<float>(B, ng, nr, ne, K, n_cond, tab, consts, T_surf, T_trop, RH, r_dry,
-                                mask0, f_surf, P_e, lP, T_e, z_e, f_e, P_trop, s);
+                                mask0, f_surf, P_e, lP, T_e, z_e, f_e, P_trop, events, s);
 }

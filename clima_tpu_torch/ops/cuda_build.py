@@ -40,7 +40,7 @@ _SIGNATURES = {
                                         _P, _P],
     },
     "rorr": {"clima_rorr_chain": [_I, _I, _I, _LL, _P, _P, _P, _P, _P]},
-    "march": {"clima_march": [_I, _I, _I, _I, _I, _I, _I] + [_P] * 15},
+    "march": {"clima_march": [_I, _I, _I, _I, _I, _I, _I] + [_P] * 16},
 }
 # library -> flags beyond _FLAGS. The march kernel repeats its twin's arithmetic
 # operation by operation, so it is built without contracting a product and a

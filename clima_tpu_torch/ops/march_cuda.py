@@ -8,7 +8,12 @@ the isothermal stratosphere and the growth of the condensing set, as
 the CPU, is ``adiabat.profile._march_torch``; ``make_profile_core`` chooses
 between them by the device alone. What bounds the kernel on an H100 and
 what its design does about it is described at the top of ``csrc/march.cu``.
-``moist_adiabat_march_cuda.launches`` counts its launches.
+``moist_adiabat_march_cuda.launches`` counts its launches. The kernel also
+writes, per column, the event-split substeps it took and whether the
+condensing set grew above the surface; while the program records
+(``utils.profiling``), :func:`count_events` adds them to the counters
+``moist_adiabat_march_cuda.event_splits`` and ``.onset_columns`` (the twin
+to its own).
 
 :func:`pack_tables` packs what the kernel reads of the profile parameters,
 one row a gas and the physical constants, once per ``AdiabatParams``
@@ -23,9 +28,11 @@ import torch
 
 from .. import constants as const
 from ..physics.saturation import BIG
+from ..utils import profiling
 from .cuda_build import load_library
 
-__all__ = ["moist_adiabat_march_cuda", "pack_tables", "sat_pressure_ref", "heat_capacity_ref"]
+__all__ = ["moist_adiabat_march_cuda", "pack_tables", "count_events", "sat_pressure_ref",
+           "heat_capacity_ref"]
 
 # a gas's row: 3 regimes x (-a, b, K, D, a), T_triple, T_critical, mu/Rgas,
 # P_ref, the molar mass, has_sat, then nr + 1 range edges and nr x 7
@@ -62,9 +69,13 @@ def moist_adiabat_march_cuda(par, RH, T_surf, T_trop, mask0, r_dry, P_e, f_i_sur
     RH (ng,) or (B, ng); T_surf and T_trop (B,); the surface condensing set
     mask0 (B, ng) bool, the dry proportions r_dry (B, ng), the edge pressures
     P_e (B, 2 nz + 1) and the surface mixing ratios f_i_surf (B, ng), as
-    ``make_profile_core`` sets them up. Returns (T_e, z_e, f_i_e, P_trop):
-    (B, 2 nz + 1), (B, 2 nz + 1), (B, 2 nz + 1, ng), (B,), P_trop -1 where no
-    tropopause was reached. CUDA tensors of float32 or float64 only.
+    ``make_profile_core`` sets them up. Returns (T_e, z_e, f_i_e, P_trop,
+    events): (B, 2 nz + 1), (B, 2 nz + 1), (B, 2 nz + 1, ng), (B,), P_trop -1
+    where no tropopause was reached, and events (B, 2) int32, per column the
+    substeps below the tropopause whose step was split at a latent-heat kink
+    or a condensation onset, and 1 where the condensing set grew above the
+    surface. CUDA tensors of float32 or float64 only. The launch alone is the
+    span ``adiabat.profile.march.kernel``.
     """
     device, dtype = T_surf.device, T_surf.dtype
     if device.type != "cuda":
@@ -83,8 +94,9 @@ def moist_adiabat_march_cuda(par, RH, T_surf, T_trop, mask0, r_dry, P_e, f_i_sur
     z_e = torch.empty_like(T_e)
     f_i_e = torch.empty((B, ne, ng), dtype=dtype, device=device)
     P_trop = torch.empty((B,), dtype=dtype, device=device)
+    events = torch.empty((B, 2), dtype=torch.int32, device=device)
     if B == 0:
-        return T_e, z_e, f_i_e, P_trop
+        return T_e, z_e, f_i_e, P_trop, events
     args = [t.to(device=device, dtype=dtype).contiguous()
             for t in (T_surf, T_trop, torch.as_tensor(RH).expand(B, ng), r_dry, f_i_surf, P_e)]
     T_surf, T_trop, RH, r_dry, f_i_surf, P_e = args
@@ -92,18 +104,35 @@ def moist_adiabat_march_cuda(par, RH, T_surf, T_trop, mask0, r_dry, P_e, f_i_sur
     lP = torch.log(P_e)
     nr = par.thermo.temps.shape[1] - 1
     fn = load_library("march")["clima_march"]
-    status = fn(int(dtype == torch.float64), B, ng, nr, ne, par.substeps, par.n_condensible,
-                tables.data_ptr(), consts.data_ptr(), T_surf.data_ptr(), T_trop.data_ptr(),
-                RH.data_ptr(), r_dry.data_ptr(), mask0.data_ptr(), f_i_surf.data_ptr(),
-                P_e.data_ptr(), lP.data_ptr(), T_e.data_ptr(), z_e.data_ptr(), f_i_e.data_ptr(),
-                P_trop.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    with profiling.span("adiabat.profile.march.kernel"):
+        status = fn(int(dtype == torch.float64), B, ng, nr, ne, par.substeps, par.n_condensible,
+                    tables.data_ptr(), consts.data_ptr(), T_surf.data_ptr(), T_trop.data_ptr(),
+                    RH.data_ptr(), r_dry.data_ptr(), mask0.data_ptr(), f_i_surf.data_ptr(),
+                    P_e.data_ptr(), lP.data_ptr(), T_e.data_ptr(), z_e.data_ptr(),
+                    f_i_e.data_ptr(), P_trop.data_ptr(), events.data_ptr(),
+                    torch.cuda.current_stream(device).cuda_stream)
     if status != 0:
         raise RuntimeError(f"march kernel launch failed: error {status}")
     moist_adiabat_march_cuda.launches += 1
-    return T_e, z_e, f_i_e, P_trop
+    count_events(moist_adiabat_march_cuda, events)
+    return T_e, z_e, f_i_e, P_trop, events
 
 
 moist_adiabat_march_cuda.launches = 0
+moist_adiabat_march_cuda.event_splits = moist_adiabat_march_cuda.onset_columns = 0
+
+
+def count_events(fn, events):
+    """Add a march's per-column ``events`` (B, 2) (split substeps, onset) to
+    ``fn.event_splits`` and ``fn.onset_columns``, while the program records
+    and the stream is not being captured; otherwise nothing happens, so an
+    unrecorded call never reads the device."""
+    if not profiling.is_recording() or (events.is_cuda
+                                        and torch.cuda.is_current_stream_capturing()):
+        return
+    splits, onsets = events.sum(dim=0).tolist()
+    fn.event_splits += splits
+    fn.onset_columns += onsets
 
 
 def _row_branch(tables, T):

@@ -18,7 +18,9 @@ after a device sync, into device times on the same host clock through an
 anchor event taken when recording starts. Requests are recorded always, at
 call granularity: host start and end and the growth of the program's
 counters (``ops.cuda_graph``'s captures, capture and warm-up seconds and
-replays, and the ``launches`` of the seven kernel wrappers). Records stay in
+replays, the ``launches`` of the seven kernel wrappers, and the
+moist-adiabat march's ``event_splits`` and ``onset_columns``, which the
+march counts only while recording is on). Records stay in
 memory, in a ring of :data:`SPAN_RING` spans (the oldest dropped and
 counted) and one of :data:`REQUEST_RING` requests, until :func:`records`
 returns them or :func:`clear` empties both. No span emits a
@@ -272,7 +274,7 @@ def span(name):
     is on; off, it is one check and a no-op context shared by every span of
     that name."""
     global _anchor
-    if _explicit or _profiler_enabled():
+    if is_recording():
         return _Span(name)
     _anchor = None
     quiet = _QUIET.get(name)
@@ -281,17 +283,28 @@ def span(name):
     return quiet
 
 
+def is_recording():
+    """Whether the program's spans are recorded now: inside
+    :func:`recording` or :func:`trace`, or while a ``torch.profiler`` is
+    active."""
+    return bool(_explicit or _profiler_enabled())
+
+
 def _counters():
     """The program's counters now: {counter: {function name: value}}."""
+    from ..adiabat import profile
     from ..ops import cuda_graph, march_cuda, rorr_cuda, twostream_cuda
 
     wrappers = (rorr_cuda.k_rorr_mix_cuda, twostream_cuda.two_stream_ir_weighted_cuda,
                 twostream_cuda.two_stream_solar_multi_weighted_cuda,
                 twostream_cuda.two_stream_ir_auto, twostream_cuda.two_stream_solar_multi_auto,
                 twostream_cuda.two_stream_solar_auto, march_cuda.moist_adiabat_march_cuda)
+    marches = (march_cuda.moist_adiabat_march_cuda, profile._march_torch)
     return dict(captures=dict(cuda_graph.CAPTURES), capture_s=dict(cuda_graph.CAPTURE_SECONDS),
                 warmup_s=dict(cuda_graph.WARMUP_SECONDS), replays=dict(cuda_graph.REPLAYS),
-                launches={w.__name__: w.launches for w in wrappers})
+                launches={w.__name__: w.launches for w in wrappers},
+                event_splits={m.__name__: m.event_splits for m in marches},
+                onset_columns={m.__name__: m.onset_columns for m in marches})
 
 
 @contextlib.contextmanager
@@ -302,7 +315,7 @@ def request(name):
     recording is on it is also a root span, with markers, that the spans
     opened inside it name as their parent and root."""
     before = _counters()
-    kept = bool(_explicit or _profiler_enabled())
+    kept = is_recording()
     rec = _open(name, kept)
     try:
         yield
@@ -355,7 +368,8 @@ def records():
     opened while recording was off: it is among the requests alone. A
     request is the same with ``counters``,
     {counter: {function name: growth during the call}}, for the counters
-    ``captures``, ``capture_s``, ``warmup_s``, ``replays`` and ``launches``.
+    ``captures``, ``capture_s``, ``warmup_s``, ``replays``, ``launches``,
+    ``event_splits`` and ``onset_columns``.
     """
     _resolve()
     spans = sorted(_spans, key=lambda r: r.id)
